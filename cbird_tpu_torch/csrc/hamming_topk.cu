@@ -20,9 +20,10 @@
 //                 nonzero bins go to device memory with one atomicAdd each.
 //   topk_collect: from the histogram the wrapper finds each needle's cut
 //                 distance D (the smallest d with k rows at <= d) and a
-//                 buffer offset; this kernel appends key = d << 32 | row for
-//                 every row at d <= D through a per-needle atomic cursor.
-//                 The wrapper sorts each needle's keys and keeps k.
+//                 buffer offset and size; this kernel appends key = d << 32
+//                 | row for every row at d <= D through a per-needle atomic
+//                 cursor, never past the needle's slots.  The wrapper sorts
+//                 each needle's keys and keeps k.
 // The distance bound keeps lists as short as the hits the caller keeps
 // (hamming.py drops d >= threshold anyway), and the histogram sizes the
 // buffer exactly, whatever k is.
@@ -86,7 +87,8 @@ topk_collect(const unsigned long long* __restrict__ needles, int q,
              const unsigned long long* __restrict__ hay,
              const bool* __restrict__ valid, int n, int bound,
              const int* __restrict__ cut, const long long* __restrict__ off,
-             int* __restrict__ cursor, long long* __restrict__ keys) {
+             const long long* __restrict__ size, int* __restrict__ cursor,
+             long long* __restrict__ keys) {
   __shared__ unsigned long long sh[CHUNK];
   __shared__ int slim[CHUNK];
   const int c0 = blockIdx.x * CHUNK;
@@ -98,12 +100,13 @@ topk_collect(const unsigned long long* __restrict__ needles, int q,
   if (i >= q) return;
   const unsigned long long a = needles[i];
   const int dcut = cut[i];
+  const long long room = size[i];
   long long* dst = keys + off[i];
   for (int j = 0; j < cn; ++j) {
     const int d = __popcll(a ^ sh[j]);
     if (d < slim[j] && d <= dcut) {
       const int slot = atomicAdd(cursor + i, 1);
-      dst[slot] = ((long long)d << 32) | (long long)(c0 + j);
+      if (slot < room) dst[slot] = ((long long)d << 32) | (long long)(c0 + j);
     }
   }
 }
@@ -134,7 +137,8 @@ extern "C" int cbird_topk_hist(const void* needles, int q, const void* hay,
 extern "C" int cbird_topk_collect(const void* needles, int q, const void* hay,
                                   const void* valid, int n, int bound,
                                   const void* cut, const void* off,
-                                  void* cursor, void* keys, void* stream) {
+                                  const void* size, void* cursor, void* keys,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(cursor, 0, sizeof(int) * (size_t)q, s);
   if (err != cudaSuccess || q == 0 || n == 0) return (int)err;
@@ -147,6 +151,7 @@ extern "C" int cbird_topk_collect(const void* needles, int q, const void* hay,
         static_cast<const bool*>(valid), n, bound,
         static_cast<const int*>(cut) + q0,
         static_cast<const long long*>(off) + q0,
+        static_cast<const long long*>(size) + q0,
         static_cast<int*>(cursor) + q0, static_cast<long long*>(keys));
     err = cudaGetLastError();
     if (err != cudaSuccess) break;

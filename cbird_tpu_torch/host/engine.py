@@ -15,14 +15,13 @@ from typing import Callable
 
 import numpy as np
 
-from cbird_tpu.params import IndexParams, SearchParams, TYPE_IMAGE, TYPE_VIDEO
-from cbird_tpu.store.database import Database
-from cbird_tpu.store.media import Media, MediaGroup
-from cbird_tpu.store.vdx import is_valid_vdx
-from cbird_tpu.utils.log import info, warn
-
 from ..device import resolve
 from ..index.dct_hash_index import DctHashIndex
+from ..params import IndexParams, SearchParams, TYPE_IMAGE, TYPE_VIDEO
+from ..store.database import Database
+from ..store.media import Media, MediaGroup
+from ..store.vdx import is_valid_vdx
+from ..utils.log import info, warn
 from .scanner import NotPortedError, Scanner, media_type_for
 
 DCT_MASK = 1 << SearchParams.ALGO_DCT

@@ -20,12 +20,11 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 from PIL import Image, ImageOps
 
-from cbird_tpu.params import IndexParams, SearchParams, TYPE_IMAGE, TYPE_VIDEO
-from cbird_tpu.store.ioutil import FileId, image_content_md5
-from cbird_tpu.store.media import Media, archive_paths
-from cbird_tpu.utils.log import profile_stage
-
 from ..ops.dct_hash import DctHasher
+from ..params import IndexParams, SearchParams, TYPE_IMAGE, TYPE_VIDEO
+from ..store.ioutil import FileId, image_content_md5
+from ..store.media import Media, archive_paths
+from ..utils.log import profile_stage
 
 Image.MAX_IMAGE_PIXELS = None  # the scanner guards sizes itself
 

@@ -4,22 +4,21 @@ Port of ``cbird_tpu/index/dct_hash_index.py``: one 64-bit perceptual hash
 per image, threshold search by Hamming distance over the device-resident
 ``PackedHashStore``.  The hash lives in the ``media`` table's
 ``phash_dct`` column, and stores of 4096+ rows keep the same ``dcthash``
-sidecar cache (``cbird_tpu/index/cache.py``), so ``_index/`` is shared
-with the JAX package.
+sidecar cache (``index/cache.py``, a copy of the JAX package's), so
+``_index/`` is shared with the JAX package.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from cbird_tpu.index.base import Index, Match
-from cbird_tpu.index.cache import load_cache, save_cache
-from cbird_tpu.params import FLAG_IMAGE, SearchParams, TYPE_IMAGE
-from cbird_tpu.store.media import Media
-from cbird_tpu.utils.log import profile_stage
-
 from ..device import resolve
 from ..ops.hamming import PackedHashStore
+from ..params import FLAG_IMAGE, SearchParams, TYPE_IMAGE
+from ..store.media import Media
+from ..utils.log import profile_stage
+from .base import Index, Match
+from .cache import load_cache, save_cache
 
 # below this, rebuilding from SQL is as fast as reading the sidecar cache
 CACHE_MIN_ROWS = 4096

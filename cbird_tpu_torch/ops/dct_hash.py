@@ -25,9 +25,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from cbird_tpu.ops.ref_numpy import dct2_matrix, zigzag_table
-
 from ..device import resolve, set_hash_numerics
+from .ref_numpy import dct2_matrix, zigzag_table
 
 _ZZ64 = np.asarray(zigzag_table(9)[6:70])  # 64 positions in the 9x9 block
 _D32 = np.asarray(dct2_matrix(32), dtype=np.float32)

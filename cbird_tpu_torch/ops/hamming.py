@@ -1,10 +1,12 @@
 """Packed Hamming hash store on one PyTorch device.
 
-Port of ``cbird_tpu/ops/hamming.py`` ``PackedHashStore`` in the
-configuration ``CBIRD_PIGEONHOLE=off`` selects on one device: the count
-phase is exact, so its result sets equal those with pigeonhole on.  The
-mesh branches, the pigeonhole count phase and its extraction are not
-ported here.
+Port of ``cbird_tpu/ops/hamming.py`` ``PackedHashStore`` on one device,
+with the reference's choice of count phase for ``search_self``: the
+pigeonhole sorted count (``ops/pigeonhole.py``, kernel K3) when it is
+enabled (``CBIRD_PIGEONHOLE``, default on) and the store and threshold
+are in its sweet spot, else the classic triangle.  Both are exact, so the
+result sets are the same.  The mesh branches and the pigeonhole hit
+extraction are not ported.
 
 Layout: the host keeps [N] uint64 hashes and [N] uint32 media ids (id 0 is
 a tombstone, as in the reference); the device keeps [n_pad] int64 bit
@@ -14,9 +16,10 @@ Two kernels carry the search (ops/count_below.py, ops/hamming_topk.py):
 - ``search``: for Q > 64 needles on a store of > 4096 rows, a count gate
   (K1) keeps only needles with ``min_hits`` hits; then the exact top-k
   (K4) for those;
-- ``search_self``: the N^2 self-search counts the upper triangle of tiles
-  (K1, and K2 on the diagonal tiles), then runs the top-k only for rows
-  with a later-row hit and mirrors their hits to the rows they matched.
+- ``search_self``: the N^2 self-search counts each row's later-row hits,
+  with the pigeonhole band (K3) or the upper triangle of tiles (K1, and
+  K2 on the diagonal tiles), then runs the top-k only for rows with a
+  later-row hit and mirrors their hits to the rows they matched.
 
 The top-k is exact with ties ordered by store row, so the verify step of
 the reference (count phase vs list lengths) is kept as a check that
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from . import pigeonhole
 from .count_below import count_below, self_tile
 from .dct_hash import combine_u32, split_u64
 from .hamming_topk import hamming_topk
@@ -82,6 +86,10 @@ class PackedHashStore:
         self._id_rows = None  # (sorted_ids, rows_sorted) id->row cache
         self._fp: str | None = None
         self.rescanned = 0  # rows the last search_self's verify rescanned
+        # the last search_self's pigeonhole tile sizes and run tiles per
+        # block ({"s": [...], "run_tiles": [...]}), None after the classic
+        # count phase
+        self.pigeonhole: dict | None = None
         if hashes is not None and len(hashes):
             self._hashes = np.asarray(hashes, dtype=np.uint64).copy()
             self._ids = np.asarray(ids, dtype=np.uint32).copy()
@@ -207,6 +215,7 @@ class PackedHashStore:
                hits instead of a dense N-list"""
         n = len(self._hashes)
         self.rescanned = 0
+        self.pigeonhole = None
         if n == 0:
             return {} if sparse else []
         if n <= min_n:
@@ -228,10 +237,24 @@ class PackedHashStore:
         k = min(k, n)
         # hot = store rows with >= 1 neighbour at a LATER row; hot_counts =
         # their exact later-row hit counts (the verify invariant below)
-        counts = self._classic_self_counts(hashes_dev, valid_dev, threshold,
-                                           n_pad, rows, cols)
-        hot = np.nonzero(counts >= 1)[0]
-        hot_counts = counts[hot]
+        hot = hot_counts = None
+        if pigeonhole.enabled():
+            # the sorted count phase: far fewer pair evaluations than the
+            # triangle at small thresholds; None outside its sweet spot
+            stats: dict = {}
+            sp = pigeonhole.self_counts_sparse(
+                hashes_dev, valid_dev, threshold,
+                int(np.count_nonzero(self._ids)), stats=stats)
+            if sp is not None:
+                hot, hot_counts = sp
+                self.pigeonhole = stats
+        if hot is None:
+            counts = self._classic_self_counts(hashes_dev, valid_dev,
+                                               threshold, n_pad, rows, cols)
+            hot = np.nonzero(counts >= 1)[0]
+            hot_counts = counts[hot]
+        hot = hot[hot < n]  # bucket padding rows are never truly hot
+        hot_counts = hot_counts[:len(hot)]
         results: dict = {}
         if len(hot) == 0:
             return self._self_result(results, n, sparse)

@@ -71,7 +71,8 @@ def hamming_topk_plain(needles: torch.Tensor, hay: torch.Tensor,
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 _HIST_ARGS = [_VP, _INT, _VP, _VP, _INT, _INT, _VP, _VP]
-_COLLECT_ARGS = [_VP, _INT, _VP, _VP, _INT, _INT, _VP, _VP, _VP, _VP, _VP]
+_COLLECT_ARGS = [_VP, _INT, _VP, _VP, _INT, _INT, _VP, _VP, _VP, _VP, _VP,
+                 _VP]
 
 
 def _load():
@@ -124,7 +125,7 @@ def hamming_topk(needles: torch.Tensor, hay: torch.Tensor,
     # every row at <= cut is collected, the sort keeps the first k
     cum = hist.cumsum(dim=1)
     cut = (cum < k).sum(dim=1).clamp(max=BINS - 1)
-    size = cum.gather(1, cut[:, None])[:, 0]
+    size = cum.gather(1, cut[:, None])[:, 0].contiguous()
     cut = cut.to(torch.int32)
     for s0, s1 in _groups(size.cpu().numpy(), MAX_KEYS):
         sz = size[s0:s1]
@@ -137,12 +138,14 @@ def hamming_topk(needles: torch.Tensor, hay: torch.Tensor,
         _build.check(lib, lib.cbird_topk_collect(
             needles[s0:s1].data_ptr(), s1 - s0, hay.data_ptr(),
             valid.data_ptr(), n, bound, cut[s0:s1].data_ptr(),
-            off.data_ptr(), cursor.data_ptr(), keys.data_ptr(), stream),
+            off.data_ptr(), sz.data_ptr(), cursor.data_ptr(), keys.data_ptr(),
+            stream),
             "topk_collect")
+        # keys < 2^40, so the sort keeps each needle's keys in its own
+        # segment [off, off + sz): seg stays the sorted keys' needle
         seg = torch.repeat_interleave(
             torch.arange(s1 - s0, device=dev), sz, output_size=total)
         skeys = torch.sort((seg << 40) | keys).values
-        seg = skeys >> 40
         pos = torch.arange(total, device=dev) - off[seg]
         take = pos < k
         out[s0 + seg[take], pos[take]] = skeys[take] & ((1 << 40) - 1)

@@ -3,9 +3,9 @@
 Same stores (numpy hashes with planted clusters and tombstones) through
 both packages: ``search`` lists and ``search_self`` lists must be equal
 (``_assert_self_parity`` of tests/test_hamming.py).  The JAX side runs
-its single-device classic triangle with pigeonhole off (the
-configuration the port implements); its CPU top-k is exact, so lists
-compare exactly.
+its single-device classic triangle with pigeonhole off, except in the
+test of the pigeonhole route, where both packages take it; its CPU top-k
+is exact, so lists compare exactly.
 """
 
 import numpy as np
@@ -16,7 +16,10 @@ from cbird_tpu.ops import hamming as jh
 from cbird_tpu.ops import pigeonhole
 from cbird_tpu.ops.dct_hash import split_u64
 from cbird_tpu_torch.ops import hamming as th
+from cbird_tpu_torch.ops import pigeonhole as tp
 from cbird_tpu_torch.ops.hamming_topk import BAD_DIST
+
+from test_torch_pigeonhole import _planted as _planted_t
 
 torch.set_num_threads(1)
 
@@ -24,9 +27,11 @@ torch.set_num_threads(1)
 @pytest.fixture
 def single_device(monkeypatch):
     """conftest creates 8 virtual cpu devices, which would send cbird_tpu
-    down its sharded path; pigeonhole off selects the classic triangle."""
+    down its sharded path; pigeonhole off selects the classic triangle in
+    both packages."""
     monkeypatch.setattr(jh, "_MESH", None)
     monkeypatch.setattr(pigeonhole, "enabled", lambda: False)
+    monkeypatch.setattr(tp, "enabled", lambda: False)
 
 
 def _stores(hashes, kill=()):
@@ -195,6 +200,37 @@ def test_store_bookkeeping():
     assert np.array_equal(port.slice({10, 11}).ids, ref.slice({10, 11}).ids)
     for n in (1, 1000, 1025, 3 << 20):
         assert th._bucket(n) == jh._bucket(n)
+
+
+def test_search_self_takes_pigeonhole(monkeypatch):
+    """The port's search_self routes through self_counts_sparse and returns
+    the JAX store's lists with pigeonhole on."""
+    monkeypatch.setattr(jh, "_MESH", None)
+    for mod in (pigeonhole, tp):
+        monkeypatch.setattr(mod, "MIN_STORE", 1024)
+    calls = []
+    real = tp.self_counts_sparse
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        calls.append(out is not None)
+        return out
+
+    monkeypatch.setattr(tp, "self_counts_sparse", spy)
+    hashes, _ = _planted_t(70, 3000, 3)
+    ids = np.arange(1, 3001, dtype=np.uint32)
+    ref = jh.PackedHashStore(hashes, ids)
+    port = th.PackedHashStore(hashes, ids, device="cpu")
+    for s in (ref, port):
+        s.remove([300, 301, 3000 - 1196])
+    want = ref.search_self(3, k=64, min_n=0)
+    got = port.search_self(3, k=64, min_n=0)
+    assert calls == [True], "pigeonhole path was not taken"
+    assert port.pigeonhole is not None and port.rescanned == 0
+    assert len(want) == len(got)
+    for row, ((wi, wd), (gi, gd)) in enumerate(zip(want, got)):
+        assert np.array_equal(wi, gi) and np.array_equal(wd, gd), row
+    assert 9 in got[7][0] and 102 in got[100][0]
 
 
 @pytest.fixture

@@ -5,7 +5,9 @@ cbird_tpu_torch on the CPU (``CBIRD_TORCH_DEVICE=cpu``).
   groups (and equal hashes) in both packages;
 - state carries across: an ``_index/`` the JAX package built opens in the
   port without re-hashing and gives the same groups, and the reverse;
-- a subprocess runs the port's slice and shows ``jax`` never imported.
+- ``-show`` writes the same HTML report in both;
+- a subprocess imports every module of the port and runs its slice, and
+  neither ``jax`` nor any module of ``cbird_tpu`` is imported.
 """
 
 import contextlib
@@ -16,12 +18,16 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from cbird_tpu.cli import main as jax_cli
 from cbird_tpu.ops import hamming as jh
+from cbird_tpu.store import ioutil as jax_ioutil
 from cbird_tpu_torch.cli import main as port_cli
+from cbird_tpu_torch.store import ioutil as port_ioutil
 
 from fixtures import make_corpus
 
@@ -113,29 +119,77 @@ def test_index_carries_across(corpus, jax_index):
     assert _groups(back, p) == want
 
 
+def test_jpeg_digests_equal_reference():
+    """The port's pure-Python jpeg payload scan gives the JAX package's
+    digests (its native scan where it builds): real jpegs with and without
+    EXIF, and FF-dense marker soup."""
+    img = Image.fromarray(
+        (np.arange(64 * 64).reshape(64, 64) % 255).astype(np.uint8))
+    exif = Image.Exif()
+    exif[0x010F] = "cbird-test-camera"
+    cases = [b"", b"\xff\xd8\xff\xe1\x00\x04ab\xff\xda123\xff\xd9"]
+    for kw in ({}, {"exif": exif.tobytes()}):
+        buf = io.BytesIO()
+        img.save(buf, "JPEG", quality=90, **kw)
+        cases.append(buf.getvalue())
+    rng = np.random.default_rng(42)
+    for _ in range(100):
+        raw = rng.integers(0, 256, int(rng.integers(2, 64))).astype(np.uint8)
+        raw[rng.random(len(raw)) < 0.3] = 0xFF
+        raw[:2] = (0xFF, 0xD8)
+        cases.append(raw.tobytes())
+    for data in cases:
+        assert (port_ioutil.image_content_md5(data)
+                == jax_ioutil.image_content_md5(data)), data.hex()
+        assert port_ioutil.jpeg_payload(data) == jax_ioutil.jpeg_payload(data)
+
+
 def test_not_ported_verbs_fail_cleanly(jax_index, capsys):
     d, _ = jax_index
     assert port_cli.main(["-use", d, "-p.alg", "orb", "-similar"]) == 2
-    assert port_cli.main(["-use", d, "-show"]) == 2
+    assert port_cli.main(["-use", d, "-browse"]) == 2
     assert "not ported yet" in capsys.readouterr().err
 
 
+def test_show_report_equal(jax_index, tmp_path, monkeypatch):
+    """-show writes the JAX package's HTML report, byte for byte."""
+    d, _ = jax_index
+    pages = []
+    for name, main in (("jax", jax_cli.main), ("port", port_cli.main)):
+        out = str(tmp_path / f"{name}.html")
+        monkeypatch.setenv("CBIRD_REPORT", out)
+        _run(main, "-use", d, "-similar", "-show")
+        with open(out, "rb") as f:
+            pages.append(f.read())
+    assert pages[0] == pages[1]
+    assert pages[1].count(b"data:image/jpeg;base64,") == 15
+
+
 def test_slice_imports_no_jax(corpus):
+    """Every module of the port imported, then the CLI slice run: neither
+    jax nor any module of the JAX package (cbird_tpu) is loaded."""
     d = _copy(corpus, "nojax")
     needle = os.path.join(d, "img000_s100.png")
     code = (
-        "import json, sys\n"
+        "import importlib, pkgutil, sys\n"
+        "import cbird_tpu_torch\n"
+        "for m in pkgutil.walk_packages(cbird_tpu_torch.__path__,\n"
+        "                               'cbird_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
         "from cbird_tpu_torch.cli.main import main\n"
         f"args = {ARGS!r}\n"
         f"assert main(['-use', {d!r}, *args, '-create', '-update',"
-        " '-similar', '-dump']) == 0\n"
+        " '-similar', '-json']) == 0\n"
         f"assert main(['-use', {d!r}, '-similar-to', {needle!r}]) == 0\n"
-        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "bad = [k for k in sys.modules if k == 'jax' or k == 'cbird_tpu'\n"
+        "       or k.startswith(('jax.', 'cbird_tpu.'))]\n"
+        "assert not bad, bad\n"
         "print('NOJAX-OK')\n")
     env = dict(os.environ, CBIRD_TORCH_DEVICE="cpu")
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=300,
                           cwd=os.path.dirname(os.path.dirname(__file__)))
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert "NOJAX-OK" in proc.stdout
-    assert "=== group" in proc.stdout
+    assert proc.stdout.rstrip().endswith("NOJAX-OK")
+    groups = json.loads(proc.stdout[:proc.stdout.rindex("NOJAX-OK")])
+    assert len(groups) == 5
