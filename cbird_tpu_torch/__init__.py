@@ -1,7 +1,8 @@
-"""cbird_tpu_torch: the cbird-tpu dct main path on PyTorch and CUDA.
+"""cbird_tpu_torch: the cbird-tpu dct main path and video on PyTorch and CUDA.
 
 A second package beside ``cbird_tpu`` (the JAX reference, which stays as
-it is).  It runs the default workflow with the default algorithm ``dct``:
+it is).  It runs the default workflow with the default algorithm ``dct``,
+and the video algorithm:
 
 - ``-update`` hashes images (``ops/dct_hash.py``, plain PyTorch matmuls);
 - ``-similar`` / ``-similar-to`` search the packed hash store
@@ -9,7 +10,11 @@ it is).  It runs the default workflow with the default algorithm ``dct``:
   ``ops/count_below.py`` (the count gate and the self-search triangle),
   ``ops/band_count.py`` (the pigeonhole self-search count phase of
   ``ops/pigeonhole.py``) and ``ops/hamming_topk.py`` (the exact per-needle
-  top-k).
+  top-k);
+- ``-p.alg video``: ``host/video.py`` decodes videos on host threads and
+  hashes their frames on the device; ``index/dct_video_index.py`` searches
+  the packed frame store (``ops/video_search.py``), whose count gate is the
+  int8 tensor-core kernel of ``ops/count_below_mma.py``.
 
 The package imports neither ``jax`` nor ``cbird_tpu``: it keeps its own
 copies of the JAX package's jax-free modules (params, store, index base
@@ -19,10 +24,13 @@ files stay byte-compatible between the two packages.
 
 Layer map:
     cli/      ``cbird-torch``: the command-line interpreter on the Engine
-    host/     engine and scanner (directory walk, decode, batched hashing)
-    store/    SQLite database, media records, file digests, .vdx files
-    index/    the index contract, the sidecar cache, the dct index
-    ops/      hashing, the hash store, pigeonhole, the kernel wrappers
+    host/     engine, scanner (directory walk, decode, batched hashing),
+              video ingest, the NLE project export
+    store/    SQLite database, media records, file digests, .vdx files,
+              the index thumbnail
+    index/    the index contract, the sidecar cache, the dct and video indexes
+    ops/      hashing, the hash and video stores, pigeonhole, the kernel
+              wrappers
     csrc/     CUDA C++ kernels for sm_90a, built at first use (_build.py)
     params.py, utils/   search and index parameters, logging, environment
 """

@@ -10,9 +10,9 @@ command line).
 
 The port's ``Engine`` runs behind it, and ``-about`` reports torch and
 the CUDA device.  Verbs that need a module the port does not have yet
-(video decode, the template matcher, the quality score, the grid split,
-the browser and the query server), ``-p.alg`` other than
-dct and ``-p.tm`` fail with "not ported yet" and exit code 2.
+(the template matcher, the quality score, the grid split, the browser and
+the query server), ``-p.alg`` other than dct and video, and ``-p.tm``
+fail with "not ported yet" and exit code 2.
 
 The device is CUDA unless ``CBIRD_TORCH_DEVICE=cpu`` selects the CPU.
 Run as ``cbird-torch ...`` or ``python -m cbird_tpu_torch.cli.main ...``.
@@ -28,7 +28,7 @@ import sys
 import torch
 
 from .. import __version__
-from ..host.engine import Engine
+from ..host.engine import PORTED_ALGOS, Engine
 from ..host.scanner import NotPortedError
 from ..params import IndexParams, ParamError, SearchParams
 from ..store.media import Media, group_by, sort_group_list
@@ -152,13 +152,11 @@ _KNOWN_VERBS = [
 
 
 # verbs whose reference implementation needs a module the port does not
-# have yet (video decode, the template matcher, the quality score, the grid
-# split, the browser, the query server) or a non-dct algorithm
+# have yet (the template matcher, the quality score, the grid split, the
+# browser, the query server) or an algorithm other than dct and video
 NOT_PORTED = {
     "-browse", "-serve", "-verify", "-merge", "-select-grid",
     "-qualityscore", "-test-image-loader", "-test-image-search",
-    "-test-video-decoder", "-test-video", "-list-formats", "-list-codecs",
-    "-video-thumbnail", "-compare-videos", "-add-video",
 }
 
 
@@ -260,9 +258,9 @@ class Cli:
 
         if a.startswith("-p."):
             self.search.set_param(a[3:], self._need(args, i, "a value"))
-            if self.search.algo != SearchParams.ALGO_DCT:
+            if self.search.algo not in PORTED_ALGOS:
                 raise NotPortedError(f"{a} {args[i + 1]}: not ported yet "
-                                     f"(only -p.alg dct is)")
+                                     f"(only -p.alg dct and video are)")
             if self.search.templateMatch:
                 raise NotPortedError("-p.tm is not ported yet")
             return i + 2
@@ -542,6 +540,20 @@ _cbird_complete() {{
 complete -F _cbird_complete cbird""")
             return i + 2 if shell else i + 1
 
+        if a == "-video-thumbnail":
+            f = self._need(args, i, "<file> <frame>")
+            if i + 2 >= len(args):
+                raise ParamError("-video-thumbnail requires <file> <frame>")
+            frame_no = int(args[i + 2])
+            self._video_thumbnail(os.path.abspath(f), frame_no)
+            return i + 3
+        if a == "-compare-videos":
+            f1 = self._need(args, i, "<a> <b>")
+            if i + 2 >= len(args):
+                raise ParamError("-compare-videos requires two files")
+            self._compare_videos(os.path.abspath(f1),
+                                 os.path.abspath(args[i + 2]))
+            return i + 3
         if a == "-migrate":
             self._migrate()
             return i + 1
@@ -647,6 +659,32 @@ complete -F _cbird_complete cbird""")
         if a == "-test-update":
             self._test_update()
             return i + 1
+        if a in ("-test-video-decoder", "-test-video"):
+            f = self._need(args, i, "a video file")
+            import time
+            from ..host.video import backend_for
+            be = backend_for(os.path.abspath(f))
+            if be is None:
+                raise ParamError(f"no decode backend for {f}")
+            t0 = time.monotonic()
+            n = 0
+            shape = None
+            for frame in be.frames(os.path.abspath(f)):
+                n += 1
+                shape = frame.shape
+            dt = time.monotonic() - t0
+            print(f"{f}: {n} frames {shape} in {dt:.2f}s "
+                  f"({n / max(dt, 1e-9):.0f} fps)")
+            return i + 2
+        if a in ("-list-formats", "-list-codecs"):
+            from ..host.scanner import ARCHIVE_EXTS, IMAGE_EXTS, VIDEO_EXTS
+            from ..host.video import FfmpegBackend
+            print("images:", " ".join(sorted(IMAGE_EXTS)))
+            print("archives:", " ".join(sorted(ARCHIVE_EXTS)))
+            vids = sorted(VIDEO_EXTS) if FfmpegBackend.available() else ["fseq"]
+            print("videos:", " ".join(vids),
+                  "" if FfmpegBackend.available() else "(ffmpeg not found)")
+            return i + 1
         if a in ("-license", "--license"):
             lic = os.path.join(os.path.dirname(os.path.dirname(
                 os.path.dirname(os.path.abspath(__file__)))), "LICENSE")
@@ -662,6 +700,20 @@ complete -F _cbird_complete cbird""")
             sel = self._need(args, i, "a selector")
             self.search.set = self._select(sel)
             self.search.inSet = True
+            return i + 2
+        if a == "-add-video":
+            # index exactly one video (the reference uses this for forked
+            # hw-decode isolation, src/scanner.cpp:1132-1177; here it is a
+            # scripting convenience)
+            f = os.path.abspath(self._need(args, i, "a video file"))
+            from ..host.video import process_video
+            eng = self.engine()
+            m = process_video(f, self.index, video_dir=eng.db.video_path(),
+                              device=eng.device)
+            if m is None:
+                raise ParamError(f"cannot index video: {f}")
+            eng.db.add([m])
+            info(f"added {f} ({len(m.videoIndex.frames)} retained frames)")
             return i + 2
         if a == "-install":
             warn("-install: desktop integration is not applicable to this "
@@ -810,6 +862,81 @@ complete -F _cbird_complete cbird""")
             ordered.append(items.pop(best))
         self.selection = ordered
         self.result = [ordered]
+
+    def _video_thumbnail(self, path: str, frame_no: int) -> None:
+        """Save one decoded frame as <name>-frame<N>.png, and, when an
+        index exists, write it as the collection thumbnail
+        ``<root>/thumb.png`` with provenance metadata (reference
+        -video-thumbnail, src/main.cpp:1790-1800)."""
+        from PIL import Image
+        from ..host.video import grab_frame
+        frame = grab_frame(path, frame_no)
+        if frame is None:
+            raise ParamError(f"cannot grab frame {frame_no} of {path}")
+        img = Image.fromarray(frame)
+        out = os.path.splitext(path)[0] + f"-frame{frame_no}.png"
+        img.save(out)
+        info(f"wrote {out}")
+        if os.path.isdir(os.path.join(self.index_dir, "_index")):
+            from ..store.thumbnail import save_index_thumb
+            # provenance (id/md5/dct) always comes from the index, as the
+            # reference's unconditional mediaWithPath (src/main.cpp:1793)
+            media = self.engine().db.media_with_path(path)
+            rel = os.path.relpath(path, self.index_dir)
+            tp = save_index_thumb(self.index_dir, img, rel_path=rel,
+                                  frame=frame_no, media=media)
+            info(f"wrote {tp}")
+
+    def _compare_videos(self, a: str, b: str) -> None:
+        """Align two videos by their hash sequences and export matched frame
+        pairs side by side (headless stand-in for the reference
+        VideoCompareWidget)."""
+        import numpy as np
+        from PIL import Image
+        from ..host.video import backend_for, grab_frame, make_video_index
+        from ..ops.ref_numpy import hamming64
+        pair = []
+        fps = []
+        for p in (a, b):
+            be = backend_for(p)
+            if be is None:
+                raise ParamError(f"no decode backend for {p}")
+            fps.append(be.probe(p).get("fps") or 25.0)
+            pair.append(make_video_index(be.frames(p),
+                                         self.index.videoThreshold,
+                                         device=self._device))
+        ia, ib = pair
+        # best alignment: for a few reference frames of A find nearest in B
+        alignments = []
+        for k in range(0, len(ia.frames), max(1, len(ia.frames) // 9)):
+            ha = int(ia.hashes[k])
+            dists = [hamming64(ha, int(h)) for h in ib.hashes]
+            j = int(np.argmin(dists))
+            alignments.append((int(ia.frames[k]), int(ib.frames[j]), dists[j]))
+        offset = int(np.median([bf - af for af, bf, _ in alignments]))
+        print(f"alignment offset: {offset:+d} frames "
+              f"(median of {len(alignments)} probes)")
+        for af, bf, d in alignments:
+            print(f"  A frame {af} <-> B frame {bf} (distance {d})")
+        # export the middle matched pair for visual check
+        mid = alignments[len(alignments) // 2]
+        out = os.path.join(os.path.dirname(a) or ".", "compare.png")
+        fa = grab_frame(a, mid[0])
+        fb = grab_frame(b, mid[1])
+        if fa is not None and fb is not None:
+            h = max(fa.shape[0], fb.shape[0])
+            w = fa.shape[1] + fb.shape[1] + 8
+            canvas = np.zeros((h, w), dtype=np.uint8)
+            canvas[:fa.shape[0], :fa.shape[1]] = fa
+            canvas[:fb.shape[0], fa.shape[1] + 8:] = fb
+            Image.fromarray(canvas).save(out)
+            info(f"wrote {out}")
+        # aligned NLE project for scrubbing both clips in sync (reference
+        # "compare in kdenlive", src/gui/videocomparewidget.cpp:723-743)
+        from ..host.nle import export_compare
+        nle_out = os.path.splitext(out)[0] + ".kdenlive"
+        export_compare(a, b, mid[0], mid[1], fps[0], fps[1], nle_out)
+        info(f"wrote {nle_out}")
 
     def _migrate(self) -> None:
         """Upgrade legacy v1 .vdx files to the v2 container, honoring

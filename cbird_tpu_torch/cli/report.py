@@ -37,10 +37,18 @@ def _thumb_b64(m: Media) -> str | None:
         from ..host.scanner import read_bytes
         from PIL import Image
         if m.type == Media.TypeVideo:
-            return None  # video decode is not ported yet: no thumbnail
-        img = Image.open(io.BytesIO(read_bytes(m.path)))
-        img.thumbnail((_THUMB, _THUMB))
-        img = img.convert("RGB")
+            from ..host.video import backend_for
+            be = backend_for(m.path)
+            if be is None:
+                return None
+            frame = next(iter(be.frames(m.path, max_side=_THUMB)), None)
+            if frame is None:
+                return None
+            img = Image.fromarray(frame)
+        else:
+            img = Image.open(io.BytesIO(read_bytes(m.path)))
+            img.thumbnail((_THUMB, _THUMB))
+            img = img.convert("RGB")
         buf = io.BytesIO()
         img.convert("RGB").save(buf, "JPEG", quality=80)
         return base64.b64encode(buf.getvalue()).decode()

@@ -23,8 +23,8 @@
 // over (column chunk x needle tile), so a 1024-needle batch against a
 // 10M-row store runs ~10k blocks and fills all 132 SMs.  Each thread ends
 // with one atomicAdd per needle (skipped when zero); integer sums are
-// exact in any order.  An int8 tensor-core form (dot = 64 - 2*ham) is later
-// performance work.
+// exact in any order.  The int8 tensor-core form (dot = 64 - 2*ham) of the
+// same function is count_below_mma.cu; the video gate takes it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -4,8 +4,9 @@ Port of ``cbird_tpu/host/scanner.py`` with the port's ``DctHasher``: the
 host walks the tree (include/exclude globs, zip members), decodes and
 digests images on worker threads, and the device hashes fixed-size
 batches of grayscale canvases (autocrop + DCT, ``ops/dct_hash.py``).  The
-walk, decode and archive handling are those of the reference module; the
-color and feature descriptors, and video decode, are not ported yet.
+walk, decode, archive handling and the longest-job-first video queue are
+those of the reference module (videos decode in ``host/video.py``); the
+color and feature descriptors are not ported yet.
 """
 
 from __future__ import annotations
@@ -69,6 +70,13 @@ class ScanResult:
     modified: list[str] = dataclasses.field(default_factory=list)
     removed_ids: list[int] = dataclasses.field(default_factory=list)
     ignored: int = 0
+
+
+def _fsize(path: str) -> int:
+    try:
+        return os.stat(path).st_size
+    except OSError:
+        return 0
 
 
 def media_type_for(path: str) -> int:
@@ -183,7 +191,40 @@ class Scanner:
 
         # anything still in expected is gone from disk
         result.removed_ids = [mid for mid, _, _ in expected.values()]
+        self._order_video_queue(result.new_videos)
         return result
+
+    def _order_video_queue(self, queue: list[str]) -> None:
+        """Longest-job-first video ordering (reference src/scanner.cpp:159-206):
+        with -i.ljf (default) each video is probed and jobs are sorted by
+        estimated decode cost (total pixels) descending; otherwise
+        likely-multithreaded container extensions go first, then file size
+        descending."""
+        if len(queue) < 2:
+            return
+        if self.params.estimateCost:
+            from .video import backend_for
+
+            def cost(path: str) -> float:
+                be = backend_for(path)
+                if be is None:
+                    return 0.0
+                try:
+                    meta = be.probe(path)
+                except Exception:
+                    return 0.0
+                # probe reports fps 0.0 when the stream has no rate:
+                # assume 25 so long rate-less videos still sort first
+                return (meta.get("duration", 0.0)
+                        * (meta.get("fps", 0.0) or 25.0)
+                        * meta.get("width", 0) * meta.get("height", 0))
+
+            costs = {p: cost(p) for p in queue}
+            queue.sort(key=lambda p: (costs[p], _fsize(p)), reverse=True)
+        else:
+            mt_formats = {"mp4", "mkv", "mpg", "webm"}
+            queue.sort(key=lambda p: (p.rsplit(".", 1)[-1].lower() in mt_formats,
+                                      _fsize(p)), reverse=True)
 
     @staticmethod
     def _zip_unchanged(path: str, mod_time: float, expected: dict) -> bool:

@@ -15,6 +15,11 @@ limit come first.
   self 1M triangle      search_self(5, k=64) with CBIRD_PIGEONHOLE=off
   self 1M / 10M ph      search_self(5, k=64) through the pigeonhole phase
   hash 1024             DctHasher, canvas 640, batch 64, autocrop
+  video (a) similar     chip_smoke's video collection (4096 videos x 512
+                        frames): find_batch over every live video, the
+                        all-pairs self-search
+  video (b) similar-to  the same collection with its black frames: find
+                        of the unstored 16384-frame needle video
 
 Exits non-zero when no CUDA device is visible.
 """
@@ -111,6 +116,21 @@ def main() -> int:
     hasher = DctHasher(canvas_hw=(640, 640), batch=64, device=s.dev)
     show("hash 1024", trace(
         torch, lambda: hasher.hash_images(images, do_crop=True), 2))
+    del hasher, images
+    from cbird_tpu_torch.params import SearchParams
+    sp = SearchParams()
+    vrng = np.random.default_rng(chip_smoke.SEED + 8)
+    data = s.video_data(vrng)
+    idx, h = s.video_index(data, black=False)
+    needles, _ = s.video_live(data, h)
+    show("video (a) similar 4096x512", trace(
+        torch, lambda: idx.find_batch(needles, sp), 2))
+    del idx, needles
+    torch.cuda.empty_cache()
+    idx, h = s.video_index(data, black=True)
+    needle, _, _ = s.video_needle(data, h, vrng)
+    show("video (b) similar-to 16384 frames", trace(
+        torch, lambda: idx.find(needle, sp), 3))
     return 0
 
 
