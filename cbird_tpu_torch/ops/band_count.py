@@ -4,8 +4,9 @@
 and ``cbird_tpu/ops/pigeonhole.py`` ``_band_chunk``; ``run_tiles``
 replaces ``_run_tile`` (one launch for a block's whole tile list instead
 of one dispatch per tile pair).  The kernel is ``csrc/band_count.cu``; its
-header states the contract, what bounds it on an H100 and which window it
-uses.
+header states the contract, what bounds it on an H100 and how the band
+walks only each row's own equal-key run (it finds the run edges itself,
+so the operands are the sorted block's three arrays).
 
 Operands: one block's sorted order, ``sh`` [n_pad + s] int64 hashes,
 ``srow`` [n_pad + s] int32 original store rows, ``svalid`` [n_pad + s]

@@ -17,7 +17,9 @@ that span two or more tile boundaries are covered by the dense tile pairs
 disjoint by tile arithmetic and the tile set is deduplicated across runs.
 
 Kernel K3 (``ops/band_count.py``, ``csrc/band_count.cu``) does the band
-and the run tiles of a block; everything else here is PyTorch.  The sort
+and the run tiles of a block; everything else here is PyTorch.  Its band
+tests only the columns up to each row's run end (or window end), so its
+work follows the equal-key pairs, not the ~1.5 s window pairs a row.  The sort
 key is the block's masked bits as one int64 (any block fits, so the
 reference's bit compaction ``_mask_positions`` has nothing to do) over
 the valid rows only; tombstones and padding are appended after them, so no

@@ -8,8 +8,9 @@ tensor-core K1-mma's epilogue (count_below_mma.cu), at a per-SM rate a
 clock and the card's maximum SM clock.  This script reads what the
 compiler made of both and what the card sustains:
 
-  sass     cuobjdump -sass of both kernels into OUT_DIR/<name>.sass, and
-           per loop (a backward branch) the opcode counts of its body
+  sass     cuobjdump -sass of the count kernels (K1, K1-mma), the top-k
+           scan (K4) and the band counts (K3) into OUT_DIR/<name>.sass,
+           and per loop (a backward branch) the opcode counts of its body
   probes   three kernels of 8 independent chains a thread, timed with
            CUDA events: POPC chained through an add (a += popc(a)), the
            epilogue's compare and add (x += d; c += x > lim), and K1's
@@ -282,9 +283,9 @@ def main() -> int:
     so = build_probes(out_dir)
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     sass = {}
-    for name, path in (("count_below", _build.build("count_below")),
-                       ("count_below_mma", _build.build("count_below_mma")),
-                       ("probe", so)):
+    kernels = ("count_below", "count_below_mma", "hamming_topk", "band_count")
+    for name, path in [(k, _build.build(k)) for k in kernels] + [("probe",
+                                                                  so)]:
         text = subprocess.run([cuobjdump, "-sass", path], check=True,
                               capture_output=True, text=True,
                               timeout=300).stdout

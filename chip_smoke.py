@@ -13,7 +13,10 @@ Phases, each printed on its own line (pass/fail, numbers, wall ms, card):
   kernels  each kernel against its plain PyTorch twin on the card, exact
            equality, at the main path's shapes; both timed (CUDA events);
            the tensor-core count (K1-mma, int8 and bf16) also against the
-           popcount K1, and the three timed at the K1 variants' shapes
+           popcount K1, and the three timed at the K1 variants' shapes;
+           the top-k (K4) also timed at the query phase's and video (a)'s
+           shapes (the wrapper, and its scan kernel alone), with the
+           needles that took its second pass at each checked (k, bound)
   hash     4096 synthetic images through DctHasher (canvas 640, batch 64,
            autocrop) on the card; 256 of them against the CPU, <= 1 bit
   query    10M-row store (1000 planted near-duplicate pairs, 1% tombstones):
@@ -68,6 +71,7 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import contextlib
+import gc
 import io
 import json
 import os
@@ -204,9 +208,15 @@ class Smoke:
         return f"{type(e).__name__}: {msg}{at}"
 
     def event_ms(self, fn, reps: int) -> float:
+        """Mean CUDA-event ms of ``reps`` calls after a warm-up.  One
+        ``gc.collect()`` before them settles the collector's debt of
+        earlier phases, which would otherwise fall on whichever call is
+        timed when it comes due; the collector stays on while they run,
+        so a wrapper's own garbage is paid for."""
         torch = self.torch
         fn()
         torch.cuda.synchronize()
+        gc.collect()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -331,12 +341,26 @@ class Smoke:
             torch.cuda.synchronize()
             err["K2"] = max(err["K2"], same(got, cb.count_below_plain(
                 *args, **kw)))
+        # K4's checks: the timed needles with needle 0 in the 400-row
+        # cluster (401 hits at < 5: past its slots for k <= 64); every
+        # needle passes its slots at bound 65, few at bound 5
+        chk = needles.clone()
+        chk[0] = hay[1000]
+        second = {}
         for k in (1, 16, 64, 1024):
             for bound in (65, T):
-                d, i = tk.hamming_topk(needles, hay, valid, k, bound)
+                n2 = tk.hamming_topk.overflowed
+                d, i = tk.hamming_topk(chk, hay, valid, k, bound)
                 torch.cuda.synchronize()
-                dp, ip = tk.hamming_topk_plain(needles, hay, valid, k, bound)
+                second[f"k{k}_bound{bound}"] = tk.hamming_topk.overflowed - n2
+                dp, ip = tk.hamming_topk_plain(chk, hay, valid, k, bound)
                 err["K4"] = max(err["K4"], same(d, dp), same(i, ip))
+        out["K4_second_pass_needles"] = second
+        out["K4_one_pass_needles"] = {c: chk.numel() - v
+                                      for c, v in second.items()}
+        if not (sum(second.values()) and sum(out["K4_one_pass_needles"]
+                                             .values())):
+            raise AssertionError("K4's checks did not run both its paths")
 
         # times at the main path's shapes: the count gate of a 1024-needle
         # query, a diagonal self-search tile, the top-k at the search bound
@@ -351,11 +375,13 @@ class Smoke:
         }
         q = needles.numel()
         k2_pairs = rows * cols - rows * (rows + 1) // 2  # column > row
+        def topk_work(q, n, k):
+            # one distance a pair: reads, [Q, k] dists and rows written
+            return dict(nbytes=9 * n + 8 * q + 8 * q * k, popc=2 * q * n)
         work = {  # bytes moved, POPC executed (two per 64-bit pair)
             "K1": dict(nbytes=9 * n + 12 * q, popc=2 * q * n),
             "K2": dict(nbytes=9 * cols + 12 * rows, popc=2 * k2_pairs),
-            "K4": dict(nbytes=9 * n + 8 * q + 8 * q * 64,
-                       popc=2 * 2 * q * n),  # two passes
+            "K4": topk_work(q, n, 64),
         }
         self.sm_clock()  # the bounds' clock, read after the checks' warm-up
         # yardstick of a tensor-core form (not the same function): the
@@ -366,6 +392,7 @@ class Smoke:
             torch.int8)
         int_mm_ms = self.event_ms(lambda: torch._int_mm(pm, hm), 5)
         del pm, hm
+        out.update(self.k4_shapes(hay, valid, needles, topk_work, err))
         for name, (kern, plain) in timings.items():
             ms = self.event_ms(kern, 20)
             plain_ms = self.event_ms(plain, 3)
@@ -389,6 +416,87 @@ class Smoke:
         out["sm_clock64_mhz"] = self.clock64_mhz
         out["bound_clock_mhz"] = self.clock_hz / 1e6
         return out
+
+    def k4_shapes(self, hay, valid, needles, topk_work, err):
+        """K4 where the main path runs it, each shape against its bound and
+        the bound of a tensor-core form (the int8 product K1-mma's row
+        counts, so that no such form can read above 100%): the wrapper
+        (both passes, the cursor read, the sort) and one first-pass scan
+        launch alone.  Shapes: the timed row's, Q=1 and Q=64 over a 10M-row
+        store at k=64 (the query phase), Q=1024 at k=4096 over 2^21 rows
+        (video (a)); bound 5.  At each shape the wrapper's distances and
+        rows of the first 64 needles are held against the plain twin's
+        (``err["K4"]``)."""
+        torch = self.torch
+        from cbird_tpu_torch.ops import hamming_topk as tk
+        rng = np.random.default_rng(SEED + 9)
+        big = torch.from_numpy(rng.integers(
+            0, 2**64, size=10_000_000, dtype=np.uint64).view(np.int64)).to(
+                self.dev)
+        big_valid = torch.from_numpy(rng.random(big.numel()) > 0.01).to(
+            self.dev)
+        pick = torch.from_numpy(rng.integers(0, 1 << 21, 1024)).to(self.dev)
+        shapes = {  # name -> (needles, haystack, valid, k)
+            "Q=1024 N=2^20 k=64": (needles, hay, valid, 64),
+            "Q=1 N=10M k=64": (big[pick[:1]] ^ 5, big, big_valid, 64),
+            "Q=64 N=10M k=64": (big[pick[:64]] ^ 5, big, big_valid, 64),
+            "Q=1024 N=2^21 k=4096": (big[pick] ^ 5, big[:1 << 21],
+                                     big_valid[:1 << 21], 4096)}
+        ms_at = {}
+        for name, (nd, h, v, k) in shapes.items():
+            d, i = tk.hamming_topk(nd, h, v, k, T)
+            dp, ip = tk.hamming_topk_plain(nd[:64], h, v, k, T)
+            torch.cuda.synchronize()
+            err["K4"] = max(err["K4"], self.same(d[:64], dp, f"K4 {name}"),
+                            self.same(i[:64], ip, f"K4 {name}"))
+            n2 = tk.hamming_topk.overflowed
+            row = ms_at[name] = {
+                "ms": self.event_ms(lambda: tk.hamming_topk(nd, h, v, k, T),
+                                    20),
+                "scan_ms": self.event_ms(self.topk_scan(nd, h, v, k, T), 20),
+                "second_pass_needles_per_call":
+                    (tk.hamming_topk.overflowed - n2) / 21}
+            q, n = nd.numel(), h.numel()
+            self.bound(row, "bound_ms", **topk_work(q, n, k))
+            self.bound(row, "tc_bound_ms", **self.mma_work(
+                q, n, TC_INT8_OPS_PER_S))
+        self.kernels["K4"]["ms_at"] = ms_at
+        self.kernels["K4"]["kernel_ms"] = ms_at["Q=1024 N=2^20 k=64"][
+            "scan_ms"]
+        self.bound(self.kernels["K4"], "tc_bound_ms",
+                   **self.mma_work(needles.numel(), hay.numel(),
+                                   TC_INT8_OPS_PER_S))
+        return {"K4_ms_at": ms_at}
+
+    def topk_scan(self, nd, h, v, k: int, bound: int):
+        """One first-pass call of K4's scan (it zeroes its counts and
+        empties its slots, then scans; no sort, no second pass), as a
+        callable for event_ms."""
+        torch = self.torch
+        from cbird_tpu_torch import _build
+        from cbird_tpu_torch.ops import hamming_topk as tk
+        lib = tk._load()
+        q, n = nd.numel(), h.numel()
+        c = tk.capacity(k, n)
+        hist = torch.empty((q, tk.BINS), dtype=torch.int32, device=self.dev)
+        cursor = torch.empty(q, dtype=torch.int32, device=self.dev)
+        keys = torch.empty(q * c, dtype=torch.int64, device=self.dev)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def launch():
+            _build.check(lib, lib.cbird_topk_scan(
+                nd.data_ptr(), None, q, h.data_ptr(), v.data_ptr(), n, bound,
+                hist.data_ptr(), None, c, cursor.data_ptr(), keys.data_ptr(),
+                stream), "topk_scan")
+        return launch
+
+    @staticmethod
+    def mma_work(q, n, rate):
+        """The tensor-core count's work: 128 tensor operations a pair, the
+        epilogue's compare (ALU pipe) and add (either pipe), 8 + 1 bytes a
+        row and 8 + 4 a needle."""
+        return dict(nbytes=9 * n + 12 * q, alu=q * n, int_ops=2 * q * n,
+                    tc_ops=128 * q * n, tc_rate=rate)
 
     @staticmethod
     def same(a, b, what: str = "kernel") -> float:
@@ -478,12 +586,8 @@ class Smoke:
         plain_ms = self.event_ms(lambda: cm.count_below_mma_plain(*args), 3)
         self.sm_clock()
 
-        # bounds: 128 tensor operations a pair, the epilogue's compare (ALU
-        # pipe) and add (either pipe), 8 + 1 bytes a row and 8 + 4 a
-        # needle; the popcount form's: 2 POPC a pair
-        def mma_work(q, n, rate):
-            return dict(nbytes=9 * n + 12 * q, alu=q * n, int_ops=2 * q * n,
-                        tc_ops=128 * q * n, tc_rate=rate)
+        # bounds: mma_work; the popcount form's: 2 POPC a pair
+        mma_work = self.mma_work
         for key, form, rate in (("K1-mma", "int8", TC_INT8_OPS_PER_S),
                                 ("K1-mma-bf16", "bf16", TC_BF16_OPS_PER_S)):
             ms_at = {}
@@ -1385,6 +1489,8 @@ def main() -> int:
     }
     for k in s.kernels.values():
         k["launches"] = 0
+    from cbird_tpu_torch.ops.hamming_topk import hamming_topk
+    s.kernels["K4"]["second_pass_needles"] = 0
     s.phase("build", s.build)
     s.phase("kernels", s.kernels_phase)
     s.phase("hash", s.hash_phase)
@@ -1393,11 +1499,15 @@ def main() -> int:
                      ("ph", s.ph_phase), ("video", s.video_phase),
                      ("vcli", s.video_cli_phase), ("cli", s.cli_phase)):
         s.set_launches(dict.fromkeys(s.counters, 0))
+        second = hamming_topk.overflowed
         s.phase(name, fn)
         got = s.launches()
-        print(f"launches in {name}: {json.dumps(got)}", flush=True)
+        second = hamming_topk.overflowed - second
+        print(f"launches in {name}: {json.dumps(got)}; K4 needles through "
+              f"the second pass: {second}", flush=True)
         for k, n in got.items():
             s.kernels[k]["launches"] += n
+        s.kernels["K4"]["second_pass_needles"] += second
     for name, k in s.kernels.items():
         if k["launches"] == 0 and name not in OFF_PATH:
             s.failed.append(f"{name} never launched on the main path")

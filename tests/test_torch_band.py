@@ -1,8 +1,11 @@
 """Port parity for kernel K3's plain twins (cbird_tpu_torch.ops.band_count)
 against cbird_tpu: the band equals the XLA _band_chunk loop and the Pallas
 band (interpret mode) for every block, the run tiles equal _run_tile, and
-the count phase stays exact through oversized runs.  The ``cuda`` test
-holds the kernel against its plain twin on a card and skips without one.
+the count phase stays exact through oversized runs.  The kernel's
+run-bounded loop (each warp of 32 sorted rows stops at its last row's run
+end) is emulated here and held equal to the plain full-window band.  The
+``cuda`` tests hold the kernels against their plain twins on a card and
+skip without one.
 """
 
 import numpy as np
@@ -90,6 +93,94 @@ def test_self_counts_oversized_run():
     np.testing.assert_array_equal(_jax_counts(hashes, valid, 5, s=256), want)
 
 
+def _k3_block(seed, n, s, t, b):
+    """Block b of threshold t over an oversized cluster (one equal-key run
+    across several tiles), 1% tombstones and a ragged 37-row invalid tail,
+    sorted by the port's count phase code.
+    @return (sh, srow, svalid, masks current first)"""
+    hashes, valid = _cluster(seed, n)
+    rng = np.random.default_rng(seed)
+    valid[rng.choice(n, n // 100, replace=False)] = False
+    valid[-37:] = False
+    h, v = _port(hashes, valid)
+    masks = [tp.mask64(m) for m in tp.block_masks(t)]
+    _, srow = tp.sort_block(h, torch.nonzero(v).flatten(),
+                            torch.nonzero(~v).flatten(), masks[b])
+    return (*tp.pad_block(h, v, srow, s), masks[b::-1])
+
+
+def _warp_limits(sh, m0, s):
+    """The band kernel's column limit per group of 32 sorted rows (the
+    warps that share its columns each stop there): the end of its last
+    row's window (the tile after that row's), or before it the first
+    position past that row whose key (bits under m0) differs."""
+    n_tot = sh.numel()
+    n_pad = n_tot - s
+    key = sh & m0
+    change = torch.ones(n_tot + 1, dtype=torch.bool)
+    change[1:-1] = key[1:] != key[:-1]
+    e = torch.where(change, torch.arange(n_tot + 1), n_tot)
+    nxt = torch.flip(torch.cummin(torch.flip(e, [0]), 0).values, [0])
+    last = torch.clamp(torch.arange(0, n_pad, 32) + 31, max=n_pad - 1)
+    return torch.minimum(nxt[last + 1],
+                         torch.clamp((last // s + 2) * s, max=n_tot))
+
+
+def _warp_limits_loop(sh, m0, s):
+    key = sh.numpy() & m0
+    n_tot = len(key)
+    n_pad = n_tot - s
+    out = []
+    for p0 in range(0, n_pad, 32):
+        last = min(p0 + 31, n_pad - 1)
+        q, end = last + 1, min((last // s + 2) * s, n_tot)
+        while q < end and key[q] == key[last]:
+            q += 1
+        out.append(q)
+    return np.array(out)
+
+
+def _band_run_bounded(sh, srow, svalid, masks, t, s):
+    """The band as the kernel walks it: row p against the columns from p + 1
+    to its group's limit and its own window end; a column past them points
+    at the last padding row, which is invalid, so it never counts."""
+    n_tot = sh.numel()
+    p = torch.arange(n_tot - s)
+    hi = torch.minimum(_warp_limits(sh, masks[0], s).repeat_interleave(32)[
+        :p.numel()], torch.clamp((p // s + 2) * s, max=n_tot))
+    q = p[:, None] + 1 + torch.arange(int((hi - p - 1).max()))[None, :]
+    q = torch.where(q < hi[:, None], q, n_tot - 1)
+    out = torch.zeros(n_tot, dtype=torch.int32)
+    bc._credit(out, sh, srow, svalid, p, q, masks, t, later=True)
+    return out
+
+
+@pytest.mark.parametrize("n,s,t", [(8192, 256, 5), (8000, 100, 3)])
+def test_run_bounded_band_equals_full_window(n, s, t):
+    """For every block: the warps' limits equal a plain walk, the run-bounded
+    ranges credit exactly what the full window does (runs across tile
+    edges, an over-long run capped at the window, tombstones, the invalid
+    tail, warps across tiles when 32 does not divide s), and they test
+    far fewer pairs."""
+    capped = 0
+    for b in range(t):
+        sh, srow, svalid, masks = _k3_block(55, n, s, t, b)
+        lim = _warp_limits(sh, masks[0], s)
+        np.testing.assert_array_equal(
+            lim.numpy(), _warp_limits_loop(sh, masks[0], s), f"block {b}")
+        got = _band_run_bounded(sh, srow, svalid, masks, t, s)
+        want = bc.band_counts_plain(sh, srow, svalid, masks, t, s)
+        assert torch.equal(got, want), b
+        assert want.sum() > 0
+        first = torch.arange(0, n, 32)
+        # pairs a warp tests (32 a column) against the window's ~1.5 s a
+        # row; ~0.2-0.33 here, where 1500 of the rows share one key
+        assert 32 * (lim - first - 1).clamp(min=0).sum() < 0.5 * n * 1.5 * s
+        capped += int((lim == torch.clamp((torch.clamp(
+            first + 31, max=n - 1) // s + 2) * s, max=n + s)).sum())
+    assert capped > 0  # an over-long run reached the window end
+
+
 def test_operand_checks():
     """What the kernel wrappers refuse before a launch."""
     n, s = 1024, 256
@@ -137,3 +228,21 @@ def test_kernel_matches_plain_on_card(cuda):
         counts = tp.self_counts(*(a.to(cuda) for a in _port(hashes, valid)),
                                 t, int(valid.sum()))
         np.testing.assert_array_equal(counts, _golden(hashes, valid, t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s,t", [(8192, 256, 5), (8000, 100, 3)])
+def test_run_bounded_kernel_on_card(cuda, n, s, t):
+    """The band kernel and the run tiles (column-split) against their plain
+    twins on the blocks of the run-bounded emulation test, 32 not dividing
+    s included."""
+    for b in range(t):
+        sh, srow, svalid, masks = (a.to(cuda) if torch.is_tensor(a) else a
+                                   for a in _k3_block(55, n, s, t, b))
+        got = bc.band_counts(sh, srow, svalid, masks, t, s)
+        want = bc.band_counts_plain(sh, srow, svalid, masks, t, s)
+        assert torch.equal(got, want), b
+        tiles = [(0, 2), (1, n // s - 1)]
+        assert torch.equal(
+            bc.run_tiles(got, sh, srow, svalid, tiles, masks, t, s),
+            bc.run_tiles_plain(want, sh, srow, svalid, tiles, masks, t, s)), b
