@@ -7,14 +7,15 @@ and the video algorithm:
 - ``-update`` hashes images (``ops/dct_hash.py``, plain PyTorch matmuls);
 - ``-similar`` / ``-similar-to`` search the packed hash store
   (``ops/hamming.py``) through hand-written CUDA kernels:
-  ``ops/count_below.py`` (the count gate and the self-search triangle),
+  ``ops/count_below_mma.py`` (the count gate and the self-search
+  triangle, on the int8 tensor cores),
   ``ops/band_count.py`` (the pigeonhole self-search count phase of
   ``ops/pigeonhole.py``) and ``ops/hamming_topk.py`` (the exact per-needle
   top-k);
 - ``-p.alg video``: ``host/video.py`` decodes videos on host threads and
   hashes their frames on the device; ``index/dct_video_index.py`` searches
-  the packed frame store (``ops/video_search.py``), whose count gate is the
-  int8 tensor-core kernel of ``ops/count_below_mma.py``.
+  the packed frame store (``ops/video_search.py``) with the same count
+  gate.
 
 The package imports neither ``jax`` nor ``cbird_tpu``: it keeps its own
 copies of the JAX package's jax-free modules (params, store, index base

@@ -130,6 +130,9 @@ usage: cbird [args...]   (arguments are executed in order)
 """.replace("VERSION", __version__)
 
 
+# every verb _dispatch takes, in its single-dash spelling (the list
+# -complete offers; tests/test_torch_slice.py holds it equal to the
+# dispatch)
 _KNOWN_VERBS = [
     "-use", "-create", "-update", "-updatemd5", "-remove", "-vacuum",
     "-verify", "-migrate", "-test-update",
@@ -140,13 +143,17 @@ _KNOWN_VERBS = [
     "-install", "-sort", "-sort-rev", "-sort-result",
     "-sort-result-rev", "-sort-similar", "-merge", "-group-by", "-head", "-tail",
     "-first", "-first-sibling", "-chop", "-dump", "-json", "-count", "-show",
-    "-browse", "-max-per-page", "-serve",
-    "-test-csv", "-test-image-search", "-select-files", "-select-sql",
+    "-browse", "-max-per-page", "-serve", "-sets", "-folders",
+    "-exit-on-select", "-headless", "-no-delete", "-focus-first",
+    "-show-results", "-theme",
+    "-test-csv", "-simtest", "-test-image-search", "-test-image-loader",
+    "-test-video-decoder", "-test-video", "-select-files", "-select-sql",
     "-select-grid",
-    "-list-formats", "-qualityscore", "-jpeg-repair-script",
+    "-list-formats", "-list-codecs", "-qualityscore", "-jpeg-repair-script",
     "-rename", "-move", "-nuke", "-nuke-dups-in", "-nuke-weeds",
-    "-qualityscore", "-video-thumbnail", "-compare-videos",
-    "-list-params", "-list-index-params", "-about", "-args", "-complete",
+    "-video-thumbnail", "-compare-videos",
+    "-list-params", "-list-search-params", "-list-index-params", "-about",
+    "-args", "-complete", "-license",
     "-v", "-q", "-h", "-help", "-version",
 ]
 
@@ -520,15 +527,14 @@ class Cli:
 
         if a == "-complete":
             # emit a bash completion script (reference -complete <shell>,
-            # src/main.cpp:150-354); the optional shell arg is consumed —
-            # only bash syntax is emitted (usable from zsh via bashcompinit)
+            # src/main.cpp:150-354); a following "bash" or "zsh" is its
+            # shell argument and is consumed, any other argument is left to
+            # the next verb — only bash syntax is emitted (usable from zsh
+            # via bashcompinit)
             shell = ""
-            if i + 1 < len(args) and not args[i + 1].startswith("-"):
+            if i + 1 < len(args) and args[i + 1] in ("bash", "zsh"):
                 shell = args[i + 1]
-                if shell not in ("bash", "zsh"):
-                    warn(f"-complete: unsupported shell '{shell}', "
-                         "emitting bash syntax")
-            verbs = sorted({w for w in _KNOWN_VERBS})
+            verbs = sorted(_KNOWN_VERBS)
             p_keys = " ".join(f"-p.{s.key}" for s in self.search.SPECS)
             i_keys = " ".join(f"-i.{s.key}" for s in self.index.SPECS)
             print(f"""# bash completion for cbird (source this file)

@@ -1,9 +1,14 @@
-// Hamming count-below-threshold (kernels K1 and K2 of the port).
+// Hamming count-below-threshold, popcount form (kernels K1 and K2).
 //
-// Replaces cbird_tpu/ops/mxu_count.py: mxu_count_below (_count_kernel, K1)
-// and, with MASKED, mxu_count_triangle (_mask_kernel, K2).  It also takes
-// the role of the XLA popcount scans _count_tile, _self_count_tile and
-// hamming_count_below (cbird_tpu/ops/hamming.py).
+// Computes the function of cbird_tpu/ops/mxu_count.py mxu_count_below
+// (_count_kernel, K1) and, with MASKED, mxu_count_triangle (_mask_kernel,
+// K2), and of the XLA popcount scans _count_tile, _self_count_tile and
+// hamming_count_below (cbird_tpu/ops/hamming.py).  The main path no longer
+// launches it: the image and video count gates and the self-search
+// triangle take the tensor-core form of the same function
+// (count_below_mma.cu, K1-mma and K2-mma), whose bound on this card is ~7x
+// lower.  It stays as the yardstick chip_smoke.py checks and times beside
+// it.
 //
 // Contract: out[i] = #{ j < n : valid[j] and popcount(needles[i] ^ hay[j]) < t
 //                              and (!MASKED or col_base + j > row_base + i) }.
@@ -23,8 +28,7 @@
 // over (column chunk x needle tile), so a 1024-needle batch against a
 // 10M-row store runs ~10k blocks and fills all 132 SMs.  Each thread ends
 // with one atomicAdd per needle (skipped when zero); integer sums are
-// exact in any order.  The int8 tensor-core form (dot = 64 - 2*ham) of the
-// same function is count_below_mma.cu; the video gate takes it.
+// exact in any order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -55,7 +55,9 @@ class Engine:
     def update(self, subdir: str = "",
                progress: Callable[[int, int], None] | None = None) -> dict:
         """Incremental re-scan (reference Engine::update).
-        @return stats dict {added, removed, modified, errors, stopped}"""
+        @return stats dict {added, removed, modified, errors, stopped,
+                modified_kept}: the modified files whose old rows a
+                stopped update kept because it did not re-add them"""
         p = self.params
         if p.algos & ~(DCT_MASK | VIDEO_MASK):
             warn("color, fdct and orb are not ported yet; indexing dct and "
@@ -85,14 +87,13 @@ class Engine:
         if scan.removed_ids and not p.dryRun:
             self.db.remove(scan.removed_ids)
 
-        # modified files: remove then re-add
-        re_add = []
+        # modified files: each indexed row is removed just before its re-add
+        # is written, so a stopped update keeps the rows it did not reach
+        stale = {}
         for path in scan.modified:
             m = self.db.media_with_path(path)
             if m.id:
-                re_add.append(m.id)
-        if re_add and not p.dryRun:
-            self.db.remove(re_add)
+                stale[path] = m.id
         todo_images = scan.new_images + scan.modified
 
         if p.dryRun:
@@ -102,20 +103,31 @@ class Engine:
                     "modified": len(scan.modified),
                     "errors": self.scanner.errors(), "stopped": False}
 
+        def write(batch: list[Media]) -> None:
+            self.db.remove([stale.pop(m.path) for m in batch
+                            if m.path in stale])
+            self.db.add(batch)
+
         added = 0
         self._stop_requested = False
         batch: list[Media] = []
         for m in self.scanner.process_images(todo_images, progress):
             batch.append(m)
             if len(batch) >= p.writeBatchSize:
-                self.db.add(batch)
+                write(batch)
                 added += len(batch)
                 batch = []
             if self._stop_requested:
                 break
         if batch:
-            self.db.add(batch)
+            write(batch)
             added += len(batch)
+        if self._stop_requested:
+            # the modified rows not reached stay as they were; the next
+            # update must see their files as modified again
+            self._rewind_last_added(list(stale))
+        else:
+            self.db.remove(list(stale.values()))  # failed to re-add
 
         # videos decode concurrently (LJF-ordered queue, -i.decoderThreads
         # workers) feeding the shared device hasher; each commits as it
@@ -135,7 +147,21 @@ class Engine:
         self.db.save_indices()
         return {"added": added, "removed": len(scan.removed_ids),
                 "modified": len(scan.modified), "errors": self.scanner.errors(),
-                "stopped": self._stop_requested}
+                "stopped": self._stop_requested,
+                "modified_kept": sorted(stale) if self._stop_requested else []}
+
+    def _rewind_last_added(self, paths: list[str]) -> None:
+        """Set the last-added time just below the oldest modification
+        time among ``paths``, so that the next scan finds them modified."""
+        times = []
+        for path in paths:
+            try:
+                times.append(os.stat(path).st_mtime)
+            except OSError:
+                pass
+        if times:
+            self.db.write_last_added(min(min(times) - 1e-3,
+                                         self.db.last_added()))
 
     def _modtime_capable(self) -> bool:
         """True when a rename bumps st_ctime on the index filesystem (the

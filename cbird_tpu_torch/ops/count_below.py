@@ -1,19 +1,21 @@
-"""Hamming count-below-threshold: CUDA kernel K1/K2, its plain twin, glue.
+"""Hamming count-below-threshold, popcount form: CUDA kernel K1/K2, its
+plain twin, shared helpers.
 
-``count_below`` replaces ``cbird_tpu/ops/mxu_count.py`` ``mxu_count_below``
-(K1) and, with ``masked=True``, ``mxu_count_triangle`` (K2); it also takes
-the role of the XLA popcount scans of ``cbird_tpu/ops/hamming.py``.  The
-kernel is ``csrc/count_below.cu``; its header says what bounds it on an
-H100 and how the design answers that.
+``count_below`` computes the function of ``cbird_tpu/ops/mxu_count.py``
+``mxu_count_below`` (K1) and, with ``masked=True``, ``mxu_count_triangle``
+(K2) with one popcount a pair.  The main path takes the tensor-core form
+of the same function (``ops/count_below_mma.py``, K1-mma and K2-mma) at
+every threshold; this one stays as the yardstick that chip_smoke.py times
+and checks beside it.  The kernel is ``csrc/count_below.cu``; its header
+says what bounds it on an H100.
 
 Hashes are int64 bit patterns, one per row.  On a CPU tensor the wrapper
 runs ``count_below_plain``; on any other device it launches the kernel or
 raises.  ``count_below.launches`` counts launches of the unmasked kernel
 (K1), ``count_below.masked_launches`` those of the masked one (K2).
 
-Host glue: ``self_tile`` is the port of ``mxu_self_tile`` (tile slicing
-and row-validity zeroing).  The BQ padding of ``count_below_padded`` has
-no counterpart: the kernel masks the ragged edge itself.
+``popcount64``, ``chunk_cols`` and ``check_operands`` serve the plain
+twins and wrappers of the other kernels too.
 """
 
 from __future__ import annotations
@@ -140,16 +142,3 @@ def count_below(needles: torch.Tensor, hay: torch.Tensor, valid: torch.Tensor,
 count_below.launches = 0
 count_below.masked_launches = 0
 
-
-def self_tile(acc: torch.Tensor, hashes: torch.Tensor, valid: torch.Tensor,
-              threshold: int, row_base: int, col_base: int, rows: int,
-              cols: int, masked: bool) -> torch.Tensor:
-    """One [rows x cols] tile of the triangular self-search count phase
-    (port of ``mxu_self_tile``): store rows [row_base, +rows) against
-    store columns [col_base, +cols); invalid needle rows count 0.
-    @return acc + the tile's per-row counts"""
-    counts = count_below(hashes[row_base:row_base + rows],
-                         hashes[col_base:col_base + cols],
-                         valid[col_base:col_base + cols], threshold,
-                         masked=masked, row_base=row_base, col_base=col_base)
-    return acc + counts * valid[row_base:row_base + rows]

@@ -11,15 +11,16 @@ extraction are not ported.
 Layout: the host keeps [N] uint64 hashes and [N] uint32 media ids (id 0 is
 a tombstone, as in the reference); the device keeps [n_pad] int64 bit
 patterns and an [n_pad] bool validity mask, padded to ``_bucket`` rows.
-Two kernels carry the search (ops/count_below.py, ops/hamming_topk.py):
+Two kernels carry the search (ops/count_below_mma.py, ops/hamming_topk.py):
 
 - ``search``: for Q > 64 needles on a store of > 4096 rows, a count gate
-  (K1) keeps only needles with ``min_hits`` hits; then the exact top-k
-  (K4) for those;
+  (K1-mma) keeps only needles with ``min_hits`` hits; then the exact
+  top-k (K4) for those;
 - ``search_self``: the N^2 self-search counts each row's later-row hits,
-  with the pigeonhole band (K3) or the upper triangle of tiles (K1, and
-  K2 on the diagonal tiles), then runs the top-k only for rows with a
-  later-row hit and mirrors their hits to the rows they matched.
+  with the pigeonhole band (K3) or the upper triangle of tiles (K1-mma,
+  and its masked form K2-mma on the diagonal tiles), then runs the top-k
+  only for rows with a later-row hit and mirrors their hits to the rows
+  they matched.
 
 The top-k is exact with ties ordered by store row, so the verify step of
 the reference (count phase vs list lengths) is kept as a check that
@@ -35,7 +36,7 @@ import torch
 
 from ..device import resolve
 from . import pigeonhole
-from .count_below import count_below, self_tile
+from .count_below_mma import count_gate, self_tile
 from .dct_hash import combine_u32, split_u64
 from .hamming_topk import hamming_topk
 
@@ -193,8 +194,8 @@ class PackedHashStore:
         hot = np.arange(q_total)
         if len(self._hashes) > 4096 and q_total > 64:
             # count gate: only needles with min_hits hits reach the top-k
-            counts = count_below(needles, hashes_dev, valid_dev,
-                                 threshold).cpu().numpy()
+            counts = count_gate(needles, hashes_dev, valid_dev,
+                                threshold).cpu().numpy()
             hot = np.nonzero(counts >= min_hits)[0]
             if len(hot) == 0:
                 return results

@@ -8,7 +8,7 @@ video index (``index/dct_video_index.py``) searches it three ways:
 - ``flat_hit_counts``: per needle frame, the stored frames under the
   threshold, ignoring video identity: the count gate, through the
   tensor-core count kernel (``ops/count_below_mma.py``, K1-mma) in
-  batches of 16,384 needles (the popcount K1 at threshold 64);
+  batches of 16,384 needles;
 - ``search_hits``: every sub-threshold (needle, frame row) pair: the
   counts, then the exact top-k (K4) for needles with hits; the count is
   kept as a check, and a needle past ``k_cap`` hits returns None;

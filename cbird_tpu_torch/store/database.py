@@ -369,8 +369,11 @@ class Database:
         return os.path.join(self._index_dir, "last-added.txt")
 
     def _write_last_added(self) -> None:
+        self.write_last_added(time.time())
+
+    def write_last_added(self, t: float) -> None:
         with open(self._last_added_file(), "w") as f:
-            f.write(str(time.time()))
+            f.write(str(t))
 
     def last_added(self) -> float:
         try:

@@ -3,19 +3,24 @@
     python3 chip_bounds.py [OUT_DIR]     (default build/bounds)
 
 chip_smoke.py bounds the count kernels by instruction issue: 2 POPC a
-pair for the popcount K1 (count_below.cu) and ~2 INT32 a pair for the
-tensor-core K1-mma's epilogue (count_below_mma.cu), at a per-SM rate a
-clock and the card's maximum SM clock.  This script reads what the
-compiler made of both and what the card sustains:
+pair for the popcount K1 (count_below.cu), and for the tensor-core K1-mma
+(count_below_mma.cu) the int8 tensor rate and one INT32 instruction a
+pair of its epilogue, at a per-SM rate a clock and the card's maximum SM
+clock.  This script reads what the compiler made of both and what the
+card sustains:
 
   sass     cuobjdump -sass of the count kernels (K1, K1-mma), the top-k
            scan (K4) and the band counts (K3) into OUT_DIR/<name>.sass,
            and per loop (a backward branch) the opcode counts of its body
-  probes   three kernels of 8 independent chains a thread, timed with
+  probes   kernels of 8 independent chains a thread, timed with
            CUDA events: POPC chained through an add (a += popc(a)), the
-           epilogue's compare and add (x += d; c += x > lim), and K1's
-           pattern (c += popc(a ^ i)); each one's opcode counts a step,
-           and the instructions it sustains per clock per SM
+           epilogue's compare and add (x += d; c += x > lim), K1's
+           pattern (c += popc(a ^ i)), K1-mma's product (4 chains of
+           int8 mma.sync m16n8k32 a warp) and K1-mma's inner loop
+           without its loads (4 m tiles of two chained k-steps from a
+           folded init, their sign bits counted); each one's opcode counts
+           a step, and the instructions it sustains per clock per SM (the
+           mma's per warp, and its int8 TOPS)
   K1       the popcount K1 at Q=16384, N=2^21, t=5 (the K1 variants'
            shape, on operands made as chip_smoke's): 20 launches after
            K1-mma's two forms, as chip_smoke times them, and 100 alone,
@@ -84,6 +89,75 @@ __global__ void __launch_bounds__(256) probe(unsigned* out,
     tb[0] = c0; tb[1] = clock64(); tb[2] = g0; tb[3] = globaltimer();
   }
 }
+// K1-mma's product: CHAINS / 2 independent int8 mma.sync m16n8k32 chains a
+// warp (their accumulators in 16 registers, so no spill at 8 blocks a SM)
+#define IMMA(x)                                                       \
+  asm volatile("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "     \
+               "{%0,%1,%2,%3}, {%4,%4,%4,%4}, {%5,%5}, {%0,%1,%2,%3};" \
+               : "+r"(x[0]), "+r"(x[1]), "+r"(x[2]), "+r"(x[3])       \
+               : "r"(a), "r"(d))
+__global__ void __launch_bounds__(256) imma_probe(unsigned* out,
+                                                  unsigned long long* times,
+                                                  int iters, unsigned d) {
+  const unsigned long long c0 = clock64(), g0 = globaltimer();
+  const unsigned a = (blockIdx.x * 256u + threadIdx.x) * 0x9E3779B9u;
+  int x[4] = {0, 0, 0, 0}, y[4] = {0, 0, 0, 0}, z[4] = {0, 0, 0, 0},
+      w[4] = {0, 0, 0, 0};
+#pragma unroll 1
+  for (int i = 0; i < iters; ++i) {
+    IMMA(x); IMMA(y); IMMA(z); IMMA(w);
+  }
+  const unsigned s = x[0] + x[1] + x[2] + x[3] + y[0] + y[1] + y[2] + y[3] +
+                     z[0] + z[1] + z[2] + z[3] + w[0] + w[1] + w[2] + w[3];
+  if (s == 0x12345678u) out[0] = s;
+  if (threadIdx.x == 0) {
+    unsigned long long* tb = times + 4 * blockIdx.x;
+    tb[0] = c0; tb[1] = clock64(); tb[2] = g0; tb[3] = globaltimer();
+  }
+}
+// K1-mma's inner loop without its loads: 4 m tiles of distinct A
+// fragments against a B pair that changes each step, each tile two
+// chained k-steps from a folded init, then its sign bits counted
+__global__ void __launch_bounds__(256) imma_tile_probe(
+    unsigned* out, unsigned long long* times, int iters, unsigned d) {
+  const unsigned long long c0 = clock64(), g0 = globaltimer();
+  const unsigned a0 = (blockIdx.x * 256u + threadIdx.x) * 0x9E3779B9u;
+  unsigned a[4][4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[m][r] = a0 * (4 * m + r + 1);
+  int cnt = 0;
+#pragma unroll 1
+  for (int i = 0; i < iters; ++i) {
+    const unsigned b0 = d ^ (unsigned)i, b1 = d + (unsigned)i;
+    int x[4][4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      x[m][0] = x[m][2] = i & 63;
+      x[m][1] = x[m][3] = 63 - (i & 63);
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        asm volatile(
+            "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+            : "+r"(x[m][0]), "+r"(x[m][1]), "+r"(x[m][2]), "+r"(x[m][3])
+            : "r"(a[m][0]), "r"(a[m][1]), "r"(a[m][2]), "r"(a[m][3]),
+              "r"(k ? b1 : b0), "r"(k ? b0 : b1));
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cnt += (int)((unsigned)x[m][e] >> 31);
+  }
+  if (cnt == 0x12345678) out[0] = cnt;
+  if (threadIdx.x == 0) {
+    unsigned long long* tb = times + 4 * blockIdx.x;
+    tb[0] = c0; tb[1] = clock64(); tb[2] = g0; tb[3] = globaltimer();
+  }
+}
 extern "C" int cbird_probe(int op, void* out, void* times, int blocks,
                            int iters, unsigned d, unsigned lim,
                            void* stream) {
@@ -94,8 +168,12 @@ extern "C" int cbird_probe(int op, void* out, void* times, int blocks,
     probe<0><<<blocks, 256, 0, s>>>(o, t, iters, d, lim);
   else if (op == 1)
     probe<1><<<blocks, 256, 0, s>>>(o, t, iters, d, lim);
-  else
+  else if (op == 2)
     probe<2><<<blocks, 256, 0, s>>>(o, t, iters, d, lim);
+  else if (op == 3)
+    imma_probe<<<blocks, 256, 0, s>>>(o, t, iters, d);
+  else
+    imma_tile_probe<<<blocks, 256, 0, s>>>(o, t, iters, d);
   return (int)cudaGetLastError();
 }
 """
@@ -298,23 +376,34 @@ def main() -> int:
     pr = Probes(torch, so)
     iters = 1 << 19
     for op, name in ((0, "popc_chained"), (1, "compare_add"),
-                     (2, "xor_popc_add")):
+                     (2, "xor_popc_add"), (3, "imma_chained"),
+                     (4, "imma_tiles")):
+        if op >= 3:
+            iters = 1 << 15  # a warp's mma takes a few clocks of the SM
         ms, clk = timed_ms(torch, lambda: pr.run(op, iters), 5)
         clk["clock64_mhz"] = pr.clock64_mhz()
         steps = pr.blocks * THREADS * CHAINS * iters
-        fn = next(f for f in sass if f"probeILi{op}E" in f)
+        fn = next(f for f in sass if (
+            f"probeILi{op}E" in f if op < 3
+            else ("imma_probe" if op == 3 else "imma_tile_probe") in f))
         body = max(sass[fn], key=lambda lp: lp["instructions"],
                    default={"opcodes": {}})
         # instructions a step: the loop body's, over its CHAINS steps
         per_step = {o: c / CHAINS for o, c in body["opcodes"].items()}
         row = {"probe": name, "ms": ms, "clock": clk,
                "opcodes_per_step": per_step}
-        for o in ("POPC", "ISETP", "IADD3", "IMAD", "SEL", "LOP3", "VIADD"):
+        for o in ("POPC", "ISETP", "IADD3", "IMAD", "SEL", "LOP3", "VIADD",
+                  "IMMA"):
             if o in per_step:
-                rate = steps * per_step[o] / (ms * 1e-3 * sms)
+                # a warp issues one IMMA for its 32 threads
+                rate = steps * per_step[o] / (ms * 1e-3 * sms) / (
+                    32 if o == "IMMA" else 1)
                 row[f"{o}_per_clk_sm_at_max"] = rate / (max_mhz * 1e6)
                 row[f"{o}_per_clk_sm_at_clock64"] = rate / (
                     clk["clock64_mhz"]["median"] * 1e6)
+        if "IMMA" in per_step:  # 16 x 8 x 32 multiply-adds each
+            row["int8_tops"] = (steps / 32 * per_step["IMMA"] * 8192
+                                / (ms * 1e-3) / 1e12)
         print(json.dumps(row), flush=True)
 
     # the popcount K1 at the K1 variants' shape, on operands made as

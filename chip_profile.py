@@ -1,8 +1,9 @@
 """Where the time goes: the port's main path traced on one NVIDIA GPU.
 
-    python3 chip_profile.py
+    python3 chip_profile.py [NAME ...]
 
-Builds chip_smoke's stores and images and, for each configuration below,
+Builds chip_smoke's stores and images and, for each configuration below
+(those whose names start with one of the NAMEs, when any are given),
 prints one JSON line: wall ms per call (host clock to the card's idle),
 device busy ms per call (the kernels', copies' and sets' time from
 ``torch.profiler``),
@@ -76,9 +77,14 @@ def trace(torch, fn, reps: int) -> dict:
 
 def main() -> int:
     import torch
+    names = sys.argv[1:]
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 2
+
+    def want(*configs):
+        return not names or any(c.startswith(n) for c in configs
+                                for n in names)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from cbird_tpu_torch.ops.dct_hash import DctHasher
     from cbird_tpu_torch.ops.hamming import PackedHashStore
@@ -96,41 +102,51 @@ def main() -> int:
     def show(name, nums):
         print(json.dumps({"config": name, **nums}), flush=True)
 
-    big, needles = store(10_000_000)
+    big, needles = store(10_000_000)  # made always: the same rng draws
     for q in (1, 64, 1024):
         nd = np.concatenate([needles, rng.integers(
             1, 2**64, size=max(0, q - len(needles)), dtype=np.uint64)])[:q]
-        show(f"search q{q} 10M", trace(
-            torch, lambda: big.search(nd, T, k=64), 10 if q < 1024 else 3))
-    show("self 10M ph", trace(
-        torch, lambda: big.search_self(T, k=64, sparse=True), 2))
+        if want(f"search q{q} 10M"):
+            show(f"search q{q} 10M", trace(
+                torch, lambda: big.search(nd, T, k=64), 10 if q < 1024 else 3))
+    if want("self 10M ph"):
+        show("self 10M ph", trace(
+            torch, lambda: big.search_self(T, k=64, sparse=True), 2))
     del big
     small, _ = store(1_000_000)
-    os.environ["CBIRD_PIGEONHOLE"] = "off"
-    show("self 1M triangle", trace(
-        torch, lambda: small.search_self(T, k=64, sparse=True), 2))
-    del os.environ["CBIRD_PIGEONHOLE"]
-    show("self 1M ph", trace(
-        torch, lambda: small.search_self(T, k=64, sparse=True), 3))
-    images = s.synth_images(1024)
-    hasher = DctHasher(canvas_hw=(640, 640), batch=64, device=s.dev)
-    show("hash 1024", trace(
-        torch, lambda: hasher.hash_images(images, do_crop=True), 2))
-    del hasher, images
+    if want("self 1M triangle"):
+        os.environ["CBIRD_PIGEONHOLE"] = "off"
+        show("self 1M triangle", trace(
+            torch, lambda: small.search_self(T, k=64, sparse=True), 2))
+        del os.environ["CBIRD_PIGEONHOLE"]
+    if want("self 1M ph"):
+        show("self 1M ph", trace(
+            torch, lambda: small.search_self(T, k=64, sparse=True), 3))
+    if want("hash 1024"):
+        images = s.synth_images(1024)
+        hasher = DctHasher(canvas_hw=(640, 640), batch=64, device=s.dev)
+        show("hash 1024", trace(
+            torch, lambda: hasher.hash_images(images, do_crop=True), 2))
+        del hasher, images
+    if not want("video (a) similar 4096x512",
+                "video (b) similar-to 16384 frames"):
+        return 0
     from cbird_tpu_torch.params import SearchParams
     sp = SearchParams()
     vrng = np.random.default_rng(chip_smoke.SEED + 8)
     data = s.video_data(vrng)
-    idx, h = s.video_index(data, black=False)
-    needles, _ = s.video_live(data, h)
-    show("video (a) similar 4096x512", trace(
-        torch, lambda: idx.find_batch(needles, sp), 2))
-    del idx, needles
-    torch.cuda.empty_cache()
+    if want("video (a) similar 4096x512"):
+        idx, h = s.video_index(data, black=False)
+        needles, _ = s.video_live(data, h)
+        show("video (a) similar 4096x512", trace(
+            torch, lambda: idx.find_batch(needles, sp), 2))
+        del idx, needles
+        torch.cuda.empty_cache()
     idx, h = s.video_index(data, black=True)
     needle, _, _ = s.video_needle(data, h, vrng)
-    show("video (b) similar-to 16384 frames", trace(
-        torch, lambda: idx.find(needle, sp), 3))
+    if want("video (b) similar-to 16384 frames"):
+        show("video (b) similar-to 16384 frames", trace(
+            torch, lambda: idx.find(needle, sp), 3))
     return 0
 
 

@@ -13,7 +13,12 @@ Phases, each printed on its own line (pass/fail, numbers, wall ms, card):
   kernels  each kernel against its plain PyTorch twin on the card, exact
            equality, at the main path's shapes; both timed (CUDA events);
            the tensor-core count (K1-mma, int8 and bf16) also against the
-           popcount K1, and the three timed at the K1 variants' shapes;
+           popcount K1, and the three timed at the K1 variants' shapes,
+           the triangle's tile and the 1024-needle gate's; its masked
+           form (K2-mma) against the plain twin and the popcount K2 on
+           diagonal tiles (the diagonal inside a 256-column step, on a
+           step edge, past and below the tile, 64-bit bases, a ragged
+           needle batch), timed beside the popcount K2;
            the top-k (K4) also timed at the query phase's and video (a)'s
            shapes (the wrapper, and its scan kernel alone), with the
            needles that took its second pass at each checked (k, bound)
@@ -48,9 +53,11 @@ Phases, each printed on its own line (pass/fail, numbers, wall ms, card):
 
 The main path is query, self, ph, video, vcli and cli: the launch
 counters are zeroed just before each of them and read just after; every
-kernel must have run there, but for the bf16 form of K1-mma, which only
-the kernels phase launches.  Launches made only to check a result (the ph
-and video phases' count checks) are left out of the counts.  The line before the last is a JSON
+kernel must have run there, but for the bf16 form of K1-mma and the
+popcount K1 and K2 (the yardstick of the tensor-core forms), which only
+the kernels phase launches and the main path must launch 0 times.
+Launches made only to check a result (the ph and video phases' count
+checks) are left out of the counts.  The line before the last is a JSON
 object with each kernel's numbers, the last is {"ok": true, "device":
 {...}}.  Any failure exits non-zero without it.  Exits non-zero at once
 when no CUDA device is visible.
@@ -99,16 +106,24 @@ TC_INT8_OPS_PER_S = 1979e12
 TC_BF16_OPS_PER_S = 989e12
 KERNELS = ("count_below", "count_below_mma", "hamming_topk", "band_count")
 # K1-mma: checked thresholds; timed shapes (Q, N, t): the K1 variants'
-# experiments (epilogue and i16 at t=5, the bf16 sweep at t=6), K1's row
-MMA_T = (0, 1, 5, 8, 32, 33, 63)
-MMA_SHAPES = ((16384, 1 << 21, 5), (16384, 1 << 21, 6), (1024, 1 << 20, 5))
+# experiments (epilogue and i16 at t=5, the bf16 sweep at t=6), the
+# triangle's tile at 1M rows, the 1024-needle gate (K1's row)
+MMA_T = (0, 1, 5, 8, 32, 33, 63, 64, 65)
+MMA_SHAPES = ((16384, 1 << 21, 5), (16384, 1 << 21, 6), (16384, 1 << 16, 5),
+              (1024, 1 << 20, 5))
+# K2-mma: checked thresholds; checked (row_base, col_base) of a ragged
+# 16381 x 65536 diagonal tile: the diagonal inside a 256-column step, on a
+# step edge, past the tile, below it, at 64-bit ids
+K2_T = (0, 5, 33, 63, 64, 65)
+K2_BASES = ((16384 + 100, 0), (32768, 0), (0, 65536), (147456, 0),
+            ((1 << 33) + 5000, 1 << 33))
 # the video phase's collection and its plants
 VIDEOS, FRAMES, FRAME_STEP = 4096, 512, 12
 COPIES, COPY_LEN = 64, 200
 BLACK_VIDEOS, BLACK_AT = 2000, (100, 200, 300, 400)
 NEEDLE_TRIMMED, NEEDLE_SOURCES, NEEDLE_SEG, NEEDLE_BLACK = 16384, 24, 300, 16
-# kernels only the kernels phase launches
-OFF_PATH = ("K1-mma-bf16",)
+# kernels only the kernels phase launches: the main path must not
+OFF_PATH = ("K1-mma-bf16", "K1", "K2")
 # sizes: K3's checks (sorted block rows, tile size s, thresholds; the
 # first is timed; s=1024 and 4096 are the other sizes the main path
 # picks), the self phase's store, the ph phase's stores (the first is
@@ -158,6 +173,7 @@ class Smoke:
         self.counters = {"K1": (cb.count_below, "launches"),
                          "K2": (cb.count_below, "masked_launches"),
                          "K1-mma": (cm.count_below_mma, "launches"),
+                         "K2-mma": (cm.count_below_mma, "masked_launches"),
                          "K1-mma-bf16": (cm.count_below_mma, "bf16_launches"),
                          "K3": (bc.band_counts, "launches"),
                          "K3-run": (bc.run_tiles, "launches"),
@@ -491,12 +507,15 @@ class Smoke:
         return launch
 
     @staticmethod
-    def mma_work(q, n, rate):
-        """The tensor-core count's work: 128 tensor operations a pair, the
-        epilogue's compare (ALU pipe) and add (either pipe), 8 + 1 bytes a
+    def mma_work(q, n, rate, pairs=None):
+        """The tensor-core count's work on the ``pairs`` it counts (default
+        q * n; a diagonal tile's are those above the diagonal): 128
+        tensor operations and the epilogue's one INT32 instruction a
+        pair (its sign-bit add, taken as the ALU pipe's); 8 + 1 bytes a
         row and 8 + 4 a needle."""
-        return dict(nbytes=9 * n + 12 * q, alu=q * n, int_ops=2 * q * n,
-                    tc_ops=128 * q * n, tc_rate=rate)
+        pairs = q * n if pairs is None else pairs
+        return dict(nbytes=9 * n + 12 * q, alu=pairs, int_ops=pairs,
+                    tc_ops=128 * pairs, tc_rate=rate)
 
     @staticmethod
     def same(a, b, what: str = "kernel") -> float:
@@ -525,8 +544,9 @@ class Smoke:
         """K1-mma, both forms, bit for bit against the plain twin (on a
         needle subset) and the popcount K1 (every needle): t in MMA_T, a
         ragged Q and N, 1% tombstones, an all-invalid column range, needles
-        planted at distance t - 1 and t; then both forms and the popcount
-        K1 timed at MMA_SHAPES."""
+        planted at distance t - 1 and t; K2-mma (``k2_mma_checks``); then
+        both forms and the popcount K1 timed at MMA_SHAPES, K2-mma and the
+        popcount K2 on the diagonal tile of two of them."""
         torch = self.torch
         from cbird_tpu_torch.ops import count_below as cb
         from cbird_tpu_torch.ops import count_below_mma as cm
@@ -540,7 +560,8 @@ class Smoke:
         needles = self.flip_bits(h64[rows], np.minimum(
             64, rng.geometric(0.25, q) ** 2 // 2), rng)
         live = np.nonzero(valid)[0]
-        plant = np.array([b for t in MMA_T for b in (t - 1, t) if b >= 0])
+        plant = np.array([b for t in MMA_T for b in (t - 1, t)
+                          if 0 <= b <= 64])
         needles[:len(plant)] = self.flip_bits(h64[live[:len(plant)]], plant,
                                               rng)
         hay = torch.from_numpy(h64.view(np.int64)).to(self.dev)
@@ -563,6 +584,7 @@ class Smoke:
         out = {"mma_checked": f"Q={q} N={n} t={list(MMA_T)}",
                "mma_hits": hits}
         del hay, vd, nd
+        err["K2-mma"], out["K2-mma_checked"] = self.k2_mma_checks(rng)
         # timing operands: 2^21 rows, 1% tombstones, needles near stored rows
         n_max = max(s[1] for s in MMA_SHAPES)
         h64 = rng.integers(0, 2**64, size=n_max, dtype=np.uint64)
@@ -584,10 +606,26 @@ class Smoke:
         qq, nn, t = MMA_SHAPES[0]
         args = (nd[:qq], hay[:nn], vd[:nn], t)
         plain_ms = self.event_ms(lambda: cm.count_below_mma_plain(*args), 3)
+        # K2-mma: the diagonal tile (rows = the first columns) of the
+        # triangle's shape and of the gate's, beside the popcount K2
+        masked = {}
+        for qq, nn, t in (MMA_SHAPES[2], MMA_SHAPES[3]):
+            args = (hay[:qq], hay[:nn], vd[:nn], t)
+            kw = dict(masked=True)
+            masked[(qq, nn, t)] = {
+                "ms": self.event_ms(lambda: cm.count_below_mma(*args, **kw),
+                                    20),
+                "popcount_K2_ms": self.event_ms(
+                    lambda: cb.count_below(*args, **kw), 20)}
+        tq, tn, t = MMA_SHAPES[2]
+        args = (hay[:tq], hay[:tn], vd[:tn], t)
+        k2_plain_ms = self.event_ms(lambda: cm.count_below_mma_plain(
+            *args, masked=True), 3)
         self.sm_clock()
 
         # bounds: mma_work; the popcount form's: 2 POPC a pair
         mma_work = self.mma_work
+        qq, nn, _ = MMA_SHAPES[0]
         for key, form, rate in (("K1-mma", "int8", TC_INT8_OPS_PER_S),
                                 ("K1-mma-bf16", "bf16", TC_BF16_OPS_PER_S)):
             ms_at = {}
@@ -604,10 +642,63 @@ class Smoke:
             self.bound(self.kernels[key], "bound_ms", "bound_by",
                        **mma_work(qq, nn, rate))
             self.bound(out, f"{key}_bound_ms", **mma_work(qq, nn, rate))
+        ms_at = {}
+        for (a, b, c), row in masked.items():
+            pairs = a * b - a * (a + 1) // 2  # column > row
+            row = ms_at[f"Q={a} N={b} t={c} diagonal"] = dict(row)
+            self.bound(row, "bound_ms", **mma_work(a, b, TC_INT8_OPS_PER_S,
+                                                   pairs))
+            self.bound(row, "popcount_K2_bound_ms", nbytes=9 * b + 12 * a,
+                       popc=2 * pairs)
+        self.kernels["K2-mma"].update(
+            max_abs_err=err["K2-mma"], ms=masked[MMA_SHAPES[2]]["ms"],
+            plain_ms=k2_plain_ms, library_ms=None, ms_at=ms_at)
+        self.bound(self.kernels["K2-mma"], "bound_ms", "bound_by",
+                   **mma_work(tq, tn, TC_INT8_OPS_PER_S,
+                              tq * tn - tq * (tq + 1) // 2))
+        out["K2-mma_ms_at"] = ms_at
         out["K1-mma_plain_ms"] = round(plain_ms, 4)
+        out["K2-mma_plain_ms"] = round(k2_plain_ms, 4)
         out["K1-mma_pairs_per_s"] = qq * nn / (times[MMA_SHAPES[0]]["int8"]
                                               * 1e-3)
         return out
+
+    def k2_mma_checks(self, rng):
+        """K2-mma against its plain twin and the popcount K2 on a ragged
+        16381 x 65536 diagonal tile at each of K2_BASES and K2_T: 2^18 random
+        rows, 1% tombstones, a quarter of the rows copies of a row 1-300
+        rows before them with 0-4 bits flipped, so near pairs lie on both
+        sides of the diagonal.
+        @return (max abs err, what was checked)"""
+        torch = self.torch
+        from cbird_tpu_torch.ops import count_below as cb
+        from cbird_tpu_torch.ops import count_below_mma as cm
+        n, rows, cols = 1 << 18, 16381, 1 << 16
+        h64 = rng.integers(0, 2**64, size=n, dtype=np.uint64)
+        dup = np.nonzero(rng.random(n) < 0.25)[0]
+        dup = dup[dup >= 300]
+        src = dup - rng.integers(1, 301, len(dup))
+        h64[dup] = self.flip_bits(h64[src], rng.integers(0, 5, len(dup)), rng)
+        hay = torch.from_numpy(h64.view(np.int64)).to(self.dev)
+        vd = torch.from_numpy(rng.random(n) > 0.01).to(self.dev)
+        err, hits = 0.0, {}
+        for rb, c0 in K2_BASES:
+            # operands at the bases' offsets; at 64-bit ids, 5000 rows apart
+            r, c = (rb, c0) if rb < n else (5000, 0)
+            args = (hay[r:r + rows], hay[c:c + cols], vd[c:c + cols])
+            kw = dict(masked=True, row_base=rb, col_base=c0)
+            for t in K2_T:
+                got = cm.count_below_mma(*args, t, **kw)
+                torch.cuda.synchronize()
+                what = f"K2-mma row_base={rb} col_base={c0} t={t}"
+                err = max(err, self.same(got, cm.count_below_mma_plain(
+                    *args, t, **kw), what), self.same(got, cb.count_below(
+                        *args, t, **kw), what))
+                hits[f"{rb}/{c0}/t{t}"] = int(got.sum())
+        if not any(v for k, v in hits.items() if k.endswith("/t5")):
+            raise AssertionError("K2-mma checks: no pair under t=5")
+        return err, {"Q": rows, "N": cols, "t": list(K2_T),
+                     "bases": [list(b) for b in K2_BASES], "hits": hits}
 
     def k3_block(self, h64, valid, t: int, b: int, s: int):
         """Block ``b`` of threshold ``t`` sorted by the port's own count
@@ -800,7 +891,7 @@ class Smoke:
                 "max_flip_bits": int(flips.max())}
 
     def query_phase(self):
-        from cbird_tpu_torch.ops import count_below as cb
+        from cbird_tpu_torch.ops import count_below_mma as cm
         from cbird_tpu_torch.ops import hamming_topk as tk
         from cbird_tpu_torch.ops.hamming import PackedHashStore
         rng = np.random.default_rng(SEED + 1)
@@ -817,16 +908,16 @@ class Smoke:
             if q > 1000:  # pad with random needles
                 needles = np.concatenate([needles, rng.integers(
                     1, 2**64, size=q - 1000, dtype=np.uint64)])
-            k1, k4 = cb.count_below.launches, tk.hamming_topk.launches
+            k1, k4 = cm.count_below_mma.launches, tk.hamming_topk.launches
             res = store.search(needles, T, k=64)
             for j in sel:
                 if ids[dst[j]] not in res[j][0]:
                     raise AssertionError(f"q={q}: planted partner missed")
             if tk.hamming_topk.launches == k4:
                 raise AssertionError(f"q={q}: K4 did not run")
-            if (cb.count_below.launches > k1) != (q > 64):
-                raise AssertionError(f"q={q}: K1 gate ran = "
-                                     f"{cb.count_below.launches > k1}")
+            if (cm.count_below_mma.launches > k1) != (q > 64):
+                raise AssertionError(f"q={q}: K1-mma gate ran = "
+                                     f"{cm.count_below_mma.launches > k1}")
             walls = []
             for _ in range(20 if q < 1024 else 5):
                 t0 = time.perf_counter()
@@ -838,6 +929,7 @@ class Smoke:
     def self_phase(self):
         from cbird_tpu_torch.ops import band_count as bc
         from cbird_tpu_torch.ops import count_below as cb
+        from cbird_tpu_torch.ops import count_below_mma as cm
         from cbird_tpu_torch.ops import hamming_topk as tk
         from cbird_tpu_torch.ops.hamming import PackedHashStore
         rng = np.random.default_rng(SEED + 2)
@@ -846,10 +938,11 @@ class Smoke:
         store = PackedHashStore(hashes, ids, device=self.dev)
         store.remove(dead)
         store._device_arrays()
-        # the classic triangle (K1, K2), as the reference's own switch
-        # selects it, then the default pigeonhole count phase (K3)
-        before = (cb.count_below.launches, cb.count_below.masked_launches,
-                  tk.hamming_topk.launches)
+        # the classic triangle (K1-mma, K2-mma), as the reference's own
+        # switch selects it, then the default pigeonhole count phase (K3)
+        before = (cm.count_below_mma.launches,
+                  cm.count_below_mma.masked_launches, tk.hamming_topk.launches,
+                  cb.count_below.launches, cb.count_below.masked_launches)
         os.environ["CBIRD_PIGEONHOLE"] = "off"
         try:
             wall, res = self.timed(lambda: store.search_self(T, k=64,
@@ -861,10 +954,14 @@ class Smoke:
         self.check_planted(res, ids, src, dst)
         if store.rescanned:
             raise AssertionError(f"verify rescanned {store.rescanned} rows")
-        after = (cb.count_below.launches, cb.count_below.masked_launches,
-                 tk.hamming_topk.launches)
-        if not all(x > y for x, y in zip(after, before)):
-            raise AssertionError(f"a kernel did not run: {before} {after}")
+        after = (cm.count_below_mma.launches,
+                 cm.count_below_mma.masked_launches, tk.hamming_topk.launches,
+                 cb.count_below.launches, cb.count_below.masked_launches)
+        ran = [x - y for x, y in zip(after, before)]
+        # 544 tiles of 16384 x 65536: 480 off the diagonal, 64 across it
+        if ran[0] < 480 or ran[1] < 64 or ran[2] == 0 or any(ran[3:]):
+            raise AssertionError(f"triangle launches K1-mma, K2-mma, K4, "
+                                 f"K1, K2: {ran}")
         k3 = bc.band_counts.launches
         wall_ph, res_ph = self.timed(lambda: store.search_self(T, k=64,
                                                                sparse=True))
@@ -874,8 +971,7 @@ class Smoke:
         return {"n": n, "triangle_wall_ms": round(wall, 1),
                 "pigeonhole_wall_ms": round(wall_ph, 1),
                 "rows_with_hits": len(res),
-                "K1_tiles": after[0] - before[0],
-                "K2_tiles": after[1] - before[1],
+                "K1-mma_tiles": ran[0], "K2-mma_tiles": ran[1],
                 "pigeonhole_s": store.pigeonhole["s"]}
 
     def timed(self, fn):
@@ -1470,10 +1566,14 @@ def main() -> int:
                "replaces": "cbird_tpu/ops/mxu_count.py:206"},
         "K1-mma": {"name": "count_below_mma", "route": "cuda",
                    "source": "cbird_tpu_torch/csrc/count_below_mma.cu",
-                   "replaces": "experiments/mxu_epilogue_ab.py:179",
-                   "also_replaces": ["experiments/mxu_epilogue_ab.py:95",
+                   "replaces": "cbird_tpu/ops/mxu_count.py:166",
+                   "also_replaces": ["experiments/mxu_epilogue_ab.py:179",
+                                     "experiments/mxu_epilogue_ab.py:95",
                                      "experiments/mxu_epilogue_ab.py:154",
                                      "experiments/mxu_i16_ab.py:55"]},
+        "K2-mma": {"name": "count_below_mma_masked", "route": "cuda",
+                   "source": "cbird_tpu_torch/csrc/count_below_mma.cu",
+                   "replaces": "cbird_tpu/ops/mxu_count.py:206"},
         "K1-mma-bf16": {"name": "count_below_mma_bf16", "route": "cuda",
                         "source": "cbird_tpu_torch/csrc/count_below_mma.cu",
                         "replaces": "experiments/mxu_count_sweep2.py:55"},
@@ -1511,6 +1611,9 @@ def main() -> int:
     for name, k in s.kernels.items():
         if k["launches"] == 0 and name not in OFF_PATH:
             s.failed.append(f"{name} never launched on the main path")
+        if k["launches"] and name in OFF_PATH:
+            s.failed.append(f"{name} launched {k['launches']} times on the "
+                            f"main path")
     print(json.dumps({"kernels": list(s.kernels.values())}), flush=True)
     if s.failed:
         print(f"chip_smoke: FAILED {s.failed}", file=sys.stderr)

@@ -1,15 +1,17 @@
-"""Block shapes of the top-k scan (K4) and the band counts (K3), measured
-on one NVIDIA GPU.
+"""Block shapes of the top-k scan (K4) and the band counts (K3), and the
+epilogue forms of the tensor-core count (K1-mma), measured on one NVIDIA
+GPU.
 
-    python3 chip_tune.py
+    python3 chip_tune.py [k4] [k3] [mma]     (default: all three)
 
-Writes every variant below of ``csrc/hamming_topk.cu`` and
-``csrc/band_count.cu`` to ``build/tune/`` (a copy of the source with its
-shape constants edited; the package always builds the sources as they
-are), builds them with nvcc, one each, all at once; checks that each
-variant's outputs equal the first variant's (or the plain band's); then
-times each one with CUDA events (20 launches, two rounds, the variants
-in turn), on chip_smoke.py's operands:
+Writes every variant below of ``csrc/hamming_topk.cu``,
+``csrc/band_count.cu`` and ``csrc/count_below_mma.cu`` to ``build/tune/``
+(a copy of the source with its shape constants or its epilogue edited;
+the package always builds the sources as they are), builds them with
+nvcc, one each, all at once; checks that each variant's outputs equal
+the first variant's (or the plain band's); then times each one with CUDA
+events (20 launches, two rounds, the variants in turn), on
+chip_smoke.py's operands:
 
   K4  one first-pass scan (bound 5, k=64): Q=1 and Q=64 over a 10M-row
       store, Q=1024 over 2^20 rows.  Variants: threads a block
@@ -21,6 +23,19 @@ in turn), on chip_smoke.py's operands:
       columns of 32 rows (by s as ``split_for`` sets it, or fixed), each
       taking SPAN columns in turn, columns staged through shared memory
       or read through L1.
+  mma K1-mma's int8 form, unmasked at Q=16384 x 65536 (the triangle's
+      tile), Q=1024 x 2^20 (the 1024-needle gate) and Q=16384 x 2^21 (the
+      video gate), masked on the diagonal tile of the first two; t=5.
+      Variants: the epilogue, the m tiles a warp, the registers and the
+      grid.  ``fold``: the product starts at the column's folded
+      threshold and a hit is a sign bit, added as it is; 4 m tiles (64
+      rows) a warp; a grid of ~16 blocks a SM (the source).  ``fold, 2
+      m tiles`` / ``8 m tiles``: 32 / 128 rows a warp; ``fold, >= n
+      blocks a SM``: registers capped for n resident blocks; ``fold,
+      grid of n blocks a SM``; ``compare``: the product starts at 0 and
+      is compared with the column's limit, then added; ``byte_perm``:
+      the folded form, each row's two sign bytes gathered with
+      ``__byte_perm`` and counted with ``__popc``.
 
 The first variant of each list is the shape the sources hold.  Prints
 the card's name and power limit, then one JSON line per variant.  Exits
@@ -68,6 +83,45 @@ def k3_edits(v) -> tuple:
         edits += (("const int split = split_for(s);",
                    f"const int split = {v[1]};"),)
     return edits + (() if v[3] else L1_EDITS)
+
+
+# K1-mma's epilogue forms, as edits of the source (which holds "fold")
+MMA_COUNT = ("    cnt[m][0] += T::sign(c[m][0]) + T::sign(c[m][1]);\n"
+             "    cnt[m][1] += T::sign(c[m][2]) + T::sign(c[m][3]);\n")
+MMA_BOUNDS = "__launch_bounds__(THREADS)\nmma_count"
+MMA_VARIANTS = {
+    "fold": (),
+    "fold, 2 m tiles": (("constexpr int MT = 4;", "constexpr int MT = 2;"),),
+    "fold, 8 m tiles": (("constexpr int MT = 4;", "constexpr int MT = 8;"),),
+    "fold, grid of 4 blocks a SM": (("16 * sms", "4 * sms"),),
+    "fold, grid of 8 blocks a SM": (("16 * sms", "8 * sms"),),
+    "fold, grid of 32 blocks a SM": (("16 * sms", "32 * sms"),),
+    "fold, >= 2 blocks a SM": ((MMA_BOUNDS, MMA_BOUNDS.replace(
+        "THREADS)", "THREADS, 2)")),),
+    "fold, >= 3 blocks a SM": ((MMA_BOUNDS, MMA_BOUNDS.replace(
+        "THREADS)", "THREADS, 3)")),),
+    "fold, >= 4 blocks a SM": ((MMA_BOUNDS, MMA_BOUNDS.replace(
+        "THREADS)", "THREADS, 4)")),),
+    "compare": (
+        ("Acc fold(int t) { return 64 - 2 * t; }",
+         "Acc fold(int t) { return 2 * t - 64; }"),
+        ("Acc never() { return 1 << 20; }",
+         "Acc never() { return -(1 << 20); }"),
+        ("  Acc c[MT][4];", "  Acc c[MT][4], l[MT][4];"),
+        ("    c[m][0] = c[m][2] = i0;\n    c[m][1] = c[m][3] = i1;\n",
+         "    c[m][0] = c[m][1] = c[m][2] = c[m][3] = 0;\n"
+         "    l[m][0] = l[m][2] = i0;\n    l[m][1] = l[m][3] = i1;\n"),
+        ("c[m][e] = T::never();", "l[m][e] = T::never();"),
+        (MMA_COUNT,
+         "    cnt[m][0] += (c[m][0] < l[m][0]) + (c[m][1] < l[m][1]);\n"
+         "    cnt[m][1] += (c[m][2] < l[m][2]) + (c[m][3] < l[m][3]);\n")),
+    "byte_perm": (
+        (MMA_COUNT,
+         "    cnt[m][0] += __popc(__byte_perm(c[m][0], c[m][1], 0x73)"
+         " & 0x8080u);\n"
+         "    cnt[m][1] += __popc(__byte_perm(c[m][2], c[m][3], 0x73)"
+         " & 0x8080u);\n"),),
+}
 
 
 def build_variant(name: str, edits: tuple) -> str:
@@ -118,37 +172,109 @@ def scan_launch(torch, lib, nd, h, v, k: int, bound: int):
 
 def main() -> int:
     import torch
+    parts = sys.argv[1:] or ["k4", "k3", "mma"]
+    if not set(parts) <= {"k4", "k3", "mma"}:
+        print(f"chip_tune: unknown parts {parts}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_tune: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import chip_smoke
-    from cbird_tpu_torch import _build
     from cbird_tpu_torch.ops import band_count as bc
+    from cbird_tpu_torch.ops import count_below_mma as cm
     from cbird_tpu_torch.ops import hamming_topk as tk
     print(chip_smoke.smi(), flush=True)
     s = chip_smoke.Smoke(torch)
-    jobs = [("hamming_topk", v) for v in K4_VARIANTS] + [
-        ("band_count", v) for v in K3_VARIANTS]
+    jobs = ([("hamming_topk", v) for v in K4_VARIANTS] * ("k4" in parts)
+            + [("band_count", v) for v in K3_VARIANTS] * ("k3" in parts)
+            + [("count_below_mma", v) for v in MMA_VARIANTS]
+            * ("mma" in parts))
+    edits = {"hamming_topk": k4_edits, "band_count": k3_edits,
+             "count_below_mma": MMA_VARIANTS.get}
     with cf.ThreadPoolExecutor(len(jobs)) as ex:
-        paths = list(ex.map(lambda j: build_variant(j[0], (
-            k4_edits if j[0] == "hamming_topk" else k3_edits)(j[1])), jobs))
+        paths = list(ex.map(lambda j: build_variant(j[0], edits[j[0]](j[1])),
+                            jobs))
     libs = {}
     for (name, v), path in zip(jobs, paths):
         lib = ctypes.CDLL(path)
         if name == "hamming_topk":
             lib.cbird_topk_scan.argtypes = tk._SCAN_ARGS
             lib.cbird_topk_scan.restype = ctypes.c_int
-        else:
+        elif name == "band_count":
             lib.cbird_band_counts.argtypes = bc._COMMON + [ctypes.c_void_p,
                                                            ctypes.c_void_p]
             lib.cbird_band_counts.restype = ctypes.c_int
+        else:
+            lib.cbird_count_below_mma.argtypes = cm._ARGTYPES
+            lib.cbird_count_below_mma.restype = ctypes.c_int
         lib.cbird_error_string.argtypes = [ctypes.c_int]
         lib.cbird_error_string.restype = ctypes.c_char_p
         libs[(name, v)] = lib
     ok = True
+    if "k4" in parts:
+        ok &= tune_k4(torch, s, libs)
+    if "k3" in parts:
+        ok &= tune_k3(torch, s, libs)
+    if "mma" in parts:
+        ok &= tune_mma(torch, s, libs)
+    return 0 if ok else 1
 
-    # K4: the scan alone at the query and batch shapes
+
+def tune_mma(torch, s, libs) -> bool:
+    """K1-mma's epilogue forms against each other (module docstring)."""
+    import chip_smoke
+    from cbird_tpu_torch import _build
+    rng = np.random.default_rng(chip_smoke.SEED + 7)
+    n = 1 << 21
+    h64 = rng.integers(0, 2**64, size=n, dtype=np.uint64)
+    hay = torch.from_numpy(h64.view(np.int64)).cuda()
+    vd = torch.from_numpy(rng.random(n) > 0.01).cuda()
+    nd = torch.from_numpy(s.flip_bits(
+        h64[rng.integers(0, n, 16384)], rng.integers(0, 8, 16384),
+        rng).view(np.int64)).cuda()
+    shapes = {  # name -> (needles, haystack, valid, masked)
+        "Q=16384 N=65536": (nd, hay[:1 << 16], vd[:1 << 16], False),
+        "Q=16384 N=65536 diagonal": (hay[:16384], hay[:1 << 16],
+                                     vd[:1 << 16], True),
+        "Q=1024 N=2^20": (nd[:1024], hay[:1 << 20], vd[:1 << 20], False),
+        "Q=1024 N=2^20 diagonal": (hay[:1024], hay[:1 << 20], vd[:1 << 20],
+                                   True),
+        "Q=16384 N=2^21": (nd, hay, vd, False)}
+    stream = torch.cuda.current_stream().cuda_stream
+    ok = True
+    times = {v: {} for v in MMA_VARIANTS}
+    for shape, (q, h, v, masked) in shapes.items():
+        outs = {m: torch.empty(q.numel(), dtype=torch.int32, device="cuda")
+                for m in MMA_VARIANTS}
+
+        def launch(m):
+            lib = libs[("count_below_mma", m)]
+            return lambda: _build.check(lib, lib.cbird_count_below_mma(
+                q.data_ptr(), q.numel(), h.data_ptr(), v.data_ptr(),
+                h.numel(), chip_smoke.T, 0, int(masked), 0, 0,
+                outs[m].data_ptr(), stream), "count_below_mma")
+        for m in MMA_VARIANTS:
+            launch(m)()
+            torch.cuda.synchronize()
+            if not torch.equal(outs[m], outs["fold"]):
+                print(f"chip_tune: K1-mma {m} differs at {shape}",
+                      file=sys.stderr)
+                ok = False
+        for _ in range(2):
+            for m in MMA_VARIANTS:
+                times[m].setdefault(shape, []).append(s.event_ms(launch(m),
+                                                                 20))
+    for m in MMA_VARIANTS:
+        print(json.dumps({"kernel": "K1-mma int8", "epilogue": m,
+                          "t": chip_smoke.T, "ms": times[m]}), flush=True)
+    return ok
+
+
+def tune_k4(torch, s, libs) -> bool:
+    """K4's block shapes against each other (module docstring)."""
+    import chip_smoke
+    ok = True
     rng = np.random.default_rng(chip_smoke.SEED + 9)
     big = torch.from_numpy(rng.integers(0, 2**64, size=10_000_000,
                                         dtype=np.uint64).view(np.int64)).cuda()
@@ -179,9 +305,16 @@ def main() -> int:
         print(json.dumps({"kernel": "K4 topk_scan", "threads": v[0],
                           "columns_per_thread": v[1], "needles_per_block":
                           v[2], "ms": times[v]}), flush=True)
-    del big, big_valid
+    return ok
 
-    # K3: the band of the smoke's timed block, and of a random one
+
+def tune_k3(torch, s, libs) -> bool:
+    """K3's block shapes against each other (module docstring)."""
+    import chip_smoke
+    from cbird_tpu_torch import _build
+    from cbird_tpu_torch.ops import band_count as bc
+    ok = True
+    # the band of the smoke's timed block, and of a random one
     n, sz, _ = chip_smoke.K3_CHECKS[0]
     rng = np.random.default_rng(chip_smoke.SEED + 5)
     planted = s.k3_data(n, sz, rng)
@@ -227,7 +360,7 @@ def main() -> int:
                               "span": v[2], "shared_stage": v[3],
                               "ms": k3[v]}),
                   flush=True)
-    return 0 if ok else 1
+    return ok
 
 
 if __name__ == "__main__":

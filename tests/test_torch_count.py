@@ -17,6 +17,7 @@ from cbird_tpu.ops import mxu_count as mc
 from cbird_tpu.ops.dct_hash import split_u64
 from cbird_tpu.ops.hamming import _self_count_tile, hamming_count_below
 from cbird_tpu_torch.ops import count_below as cbm
+from cbird_tpu_torch.ops import count_below_mma as cm
 
 torch.set_num_threads(1)
 
@@ -84,8 +85,9 @@ def test_triangle_matches_mxu(data, interpret):
 @pytest.mark.parametrize("rb,cb,masked", [(0, 0, True), (512, 4096, False),
                                           (4096, 4096, True)])
 def test_self_tile_matches_reference(data, interpret, rb, cb, masked):
-    """Tile slicing + row-validity zeroing (mxu_self_tile), against the
-    Pallas tile and the XLA scan tile."""
+    """Tile slicing + row-validity zeroing (mxu_self_tile, ported on the
+    tensor-core count), against the Pallas tile and the XLA scan
+    tile."""
     hashes, valid, _ = data
     pairs = jnp.asarray(split_u64(hashes))
     rows, cols = 512, 4096
@@ -98,8 +100,8 @@ def test_self_tile_matches_reference(data, interpret, rb, cb, masked):
         acc, jnp.int32(rb), jnp.int32(cb), pairs, jnp.asarray(valid),
         jnp.int32(7), rows=rows, cols=cols, masked=masked))
     hs, vs = _port(hashes, valid)
-    got = cbm.self_tile(torch.zeros(rows, dtype=torch.int32), hs, vs, 7,
-                        rb, cb, rows, cols, masked).numpy()
+    got = cm.self_tile(torch.zeros(rows, dtype=torch.int32), hs, vs, 7,
+                       rb, cb, rows, cols, masked).numpy()
     assert np.array_equal(want_mxu, want_xla)
     assert np.array_equal(got, want_mxu)
 

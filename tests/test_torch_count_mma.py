@@ -1,7 +1,9 @@
-"""Port parity: the tensor-core count kernel (K1-mma) of cbird_tpu_torch
-against the JAX package's Pallas +-1 product kernel (``mxu_count_below``,
-interpret mode: the K1 variants of ``experiments/`` share its contract and
-have no interpret mode) and a numpy golden.
+"""Port parity: the tensor-core count kernels (K1-mma and its masked form
+K2-mma) of cbird_tpu_torch against the JAX package's Pallas +-1 product
+kernels (``mxu_count_below`` and ``mxu_count_triangle``, interpret mode:
+the K1 variants of ``experiments/`` share their contract and have no
+interpret mode), a numpy golden and the popcount K1 / K2; and the routes
+of the image gate and the self-search triangle through them.
 
 Counts are integers and must be equal exactly.  On the CPU the wrapper
 runs its plain PyTorch twin; the CUDA kernel itself, in both its int8 and
@@ -105,17 +107,115 @@ def test_planted_edges_counted(data):
 
 
 def test_count_gate_and_threshold_range(data):
-    """count_gate takes the popcount K1 at t = 64 (every valid row
-    counts); the +-1 form refuses thresholds outside 0..63."""
+    """count_gate is the +-1 form at every threshold: at t = 64 every
+    valid row but a needle's complement counts, at 65 and above every
+    valid row, as popcount < t gives; a negative threshold raises."""
     hashes, valid, needles = data
     hs, vs, nd = _t(hashes), torch.from_numpy(valid.copy()), _t(needles)
-    assert torch.equal(cm.count_gate(nd, hs, vs, 64),
-                       torch.full((Q,), int(valid.sum()), dtype=torch.int32))
+    nd[3] = ~hs[10]  # a complement: distance 64 to a valid row
+    assert valid[10]
     assert torch.equal(cm.count_gate(nd, hs, vs, 5),
                        cb.count_below(nd, hs, vs, 5))
-    for t in (-1, 64):
-        with pytest.raises(ValueError, match="0..63"):
-            cm.count_below_mma(nd, hs, vs, t)
+    everything = torch.full((Q,), int(valid.sum()), dtype=torch.int32)
+    for t in (65, 100):
+        assert torch.equal(cm.count_gate(nd, hs, vs, t), everything)
+    got64 = cm.count_gate(nd, hs, vs, 64)
+    assert int(got64[3]) == int(valid.sum()) - 1
+    assert torch.equal(got64, cb.count_below(nd, hs, vs, 64))
+    with pytest.raises(ValueError, match=">= 0"):
+        cm.count_below_mma(nd, hs, vs, -1)
+
+
+# (row_base, col_base, t) of a 256 x 1024 tile: the diagonal inside it,
+# starting at its corner (an edge), and past it (every column above every
+# row, so the mask drops nothing)
+MASK_CASES = [(512, 256, 5), (1024, 1024, 33), (0, 2048, 63)]
+
+
+def _golden_masked(hashes, valid, needles, t, rb, c0):
+    d = np.bitwise_count(needles[:, None] ^ hashes[None, :])
+    rows = rb + np.arange(len(needles))[:, None]
+    cols = c0 + np.arange(len(hashes))[None, :]
+    return ((d < t) & valid[None, :] & (cols > rows)).sum(axis=1).astype(
+        np.int32)
+
+
+def c0popcount(*args, **kw):
+    """The popcount K1 / K2 (count_below) as numpy."""
+    return cb.count_below(*args, **kw).numpy()
+
+
+@pytest.mark.parametrize("rb,c0,t", MASK_CASES)
+def test_masked_matches_triangle_and_golden(data, interpret, rb, c0, t):
+    """The masked form (K2-mma) on the CPU against the Pallas diagonal-tile
+    kernel, the numpy golden and the popcount K2."""
+    hashes, valid, _ = data
+    rows, cols = mc.BQ, mc.BC_MASKED
+    nd = hashes[rb:rb + rows]
+    hs, vs = hashes[c0:c0 + cols], valid[c0:c0 + cols]
+    want = np.asarray(mc.mxu_count_triangle(
+        jnp.asarray(split_u64(nd)), jnp.asarray(split_u64(hs)),
+        jnp.asarray(vs.astype(np.int32)), jnp.int32(t), jnp.int32(rb),
+        jnp.int32(c0), bq=mc.BQ, bc=mc.BC_MASKED))
+    assert np.array_equal(want, _golden_masked(hs, vs, nd, t, rb, c0))
+    args = (_t(nd), _t(hs), torch.from_numpy(vs.copy()), t)
+    kw = dict(masked=True, row_base=rb, col_base=c0)
+    got = cm.count_below_mma(*args, **kw).numpy()
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, c0popcount(*args, **kw))
+    if c0 >= rb + rows:
+        assert np.array_equal(got, cm.count_below_mma(*args).numpy())
+
+
+@pytest.mark.parametrize("t", [64, 65, 100])
+def test_high_thresholds_equal_popcount(data, t):
+    """Above 63 (where the Pallas kernels' callers never go) the gate and
+    the masked form equal the numpy golden and the popcount K1 / K2."""
+    hashes, valid, needles = data
+    needles = needles.copy()
+    needles[3] = ~hashes[10]  # distance 64 to a valid row
+    hs, vs, nd = _t(hashes), torch.from_numpy(valid.copy()), _t(needles)
+    got = cm.count_gate(nd, hs, vs, t).numpy()
+    assert np.array_equal(got, _golden(hashes, valid, needles, t))
+    assert np.array_equal(got, c0popcount(nd, hs, vs, t))
+    rb = 100
+    kw = dict(masked=True, row_base=rb, col_base=0)
+    got = cm.count_below_mma(_t(hashes[rb:rb + Q]), hs, vs, t, **kw).numpy()
+    assert np.array_equal(got, _golden_masked(hashes, valid,
+                                              hashes[rb:rb + Q], t, rb, 0))
+    assert np.array_equal(got, c0popcount(_t(hashes[rb:rb + Q]), hs, vs, t,
+                                           **kw))
+
+
+def test_search_and_triangle_take_count_mma(monkeypatch):
+    """PackedHashStore.search's count gate and search_self's triangle tiles
+    (unmasked and, on the diagonal tiles, masked) go through
+    count_below_mma, never the popcount K1/K2."""
+    from cbird_tpu_torch.ops import hamming as th
+    from cbird_tpu_torch.ops import pigeonhole as tp
+    monkeypatch.setattr(tp, "enabled", lambda: False)
+    calls = []
+    real = cm.count_below_mma
+
+    def spy(*a, **kw):
+        calls.append(kw.get("masked", False))
+        return real(*a, **kw)
+
+    def popcount(*a, **kw):
+        raise AssertionError("the popcount K1/K2 ran")
+    monkeypatch.setattr(cm, "count_below_mma", spy)
+    monkeypatch.setattr(cb, "count_below", popcount)
+    rng = np.random.default_rng(12)
+    hashes = rng.integers(1, 2**63, size=4200, dtype=np.uint64)
+    hashes[4000] = hashes[7] ^ np.uint64(1 << 5)
+    store = th.PackedHashStore(hashes, np.arange(1, 4201, dtype=np.uint32),
+                               device="cpu")
+    res = store.search(hashes[:100], 5, k=8, min_hits=2)
+    assert calls == [False] and 4001 in res[7][0]
+    calls.clear()
+    res = store.search_self(5, k=8, rows=1024, cols=2048, min_n=0)
+    assert store.pigeonhole is None and True in calls and False in calls
+    assert 4001 in res[7][0] and 8 in res[4000][0]
 
 
 def test_unpack_dot_identity(data):
@@ -129,6 +229,11 @@ def test_unpack_dot_identity(data):
         assert np.array_equal(dot, 64 - 2 * ham)
 
 
+def _counters():
+    f = cm.count_below_mma
+    return f.launches, f.masked_launches, f.bf16_launches
+
+
 def test_wrapper_has_no_fallback(monkeypatch):
     """A non-CPU tensor takes the kernel path: when the kernel cannot be
     built or loaded the call raises instead of returning the plain result."""
@@ -138,12 +243,12 @@ def test_wrapper_has_no_fallback(monkeypatch):
     monkeypatch.setattr(cm, "_load", broken)
     h = torch.empty(16, dtype=torch.int64, device="meta")
     v = torch.empty(16, dtype=torch.bool, device="meta")
-    before = cm.count_below_mma.launches, cm.count_below_mma.bf16_launches
+    before = _counters()
     for bf16 in (False, True):
-        with pytest.raises(RuntimeError, match="unavailable"):
-            cm.count_below_mma(h[:4], h, v, 5, bf16=bf16)
-    assert (cm.count_below_mma.launches,
-            cm.count_below_mma.bf16_launches) == before
+        for masked in (False, True):
+            with pytest.raises(RuntimeError, match="unavailable"):
+                cm.count_below_mma(h[:4], h, v, 5, bf16=bf16, masked=masked)
+    assert _counters() == before
 
 
 @pytest.fixture
@@ -171,3 +276,29 @@ def test_kernel_matches_plain_on_card(data, cuda, bf16):
         assert torch.equal(got, cb.count_below(nd[:251], hs[:4001],
                                                vs[:4001], t)), t
     assert getattr(cm.count_below_mma, counter) == before + 7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+def test_masked_kernel_matches_plain_on_card(data, cuda, bf16):
+    """The masked form on a ragged Q and N, bit for bit against the plain
+    twin and the popcount K2: the diagonal inside a 256-column step, on a
+    step edge, past the tile and below it, at t in {0, 5, 33, 63, 64, 65}."""
+    hashes, valid, _ = data
+    hs, vs = _t(hashes).to(cuda), torch.from_numpy(valid.copy()).to(cuda)
+    before = _counters()
+    calls = 0
+    for rb, c0 in ((300, 100), (512, 256), (0, 2048), (2048, 0)):
+        nd = hs[rb:rb + 251]
+        for t in (0, 5, 33, 63, 64, 65):
+            args = (nd, hs[c0:c0 + 2001], vs[c0:c0 + 2001], t)
+            kw = dict(masked=True, row_base=rb, col_base=c0)
+            got = cm.count_below_mma(*args, bf16=bf16, **kw)
+            torch.cuda.synchronize()
+            calls += 1
+            assert torch.equal(got, cm.count_below_mma_plain(*args, **kw)), \
+                (rb, c0, t)
+            assert torch.equal(got, cb.count_below(*args, **kw)), (rb, c0, t)
+    want = list(before)
+    want[2 if bf16 else 1] += calls
+    assert _counters() == tuple(want)

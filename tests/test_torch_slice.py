@@ -193,3 +193,88 @@ def test_slice_imports_no_jax(corpus):
     assert proc.stdout.rstrip().endswith("NOJAX-OK")
     groups = json.loads(proc.stdout[:proc.stdout.rindex("NOJAX-OK")])
     assert len(groups) == 5
+
+
+def test_complete_takes_only_a_shell(tmp_path, monkeypatch, capsys):
+    """-complete consumes a following "bash" or "zsh" as its shell; any
+    other argument is the next verb's (here an unknown one: rc 2)."""
+    monkeypatch.chdir(tmp_path)
+    for shell in ("bash", "zsh"):
+        assert port_cli.main(["-complete", shell]) == 0
+        assert "complete -F _cbird_complete cbird" in capsys.readouterr().out
+    assert port_cli.main(["-complete", "-version"]) == 0
+    assert capsys.readouterr().out.rstrip().endswith(port_cli.__version__)
+    assert port_cli.main(["-complete", "notashell"]) == 2
+    assert "unknown argument: notashell" in capsys.readouterr().err
+
+
+def test_known_verbs_equal_dispatch():
+    """The completion list holds every verb _dispatch takes (each literal
+    it compares the verb with, the GUI option sets it names and the
+    not-ported verbs), single-dash spellings only, each once."""
+    import ast
+    import inspect
+    tree = ast.parse(inspect.getsource(port_cli))
+    fn = next(n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)
+              and n.name == "_dispatch")
+    named = {t.id: n.value for n in ast.walk(fn) if isinstance(n, ast.Assign)
+             for t in n.targets if isinstance(t, ast.Name)}
+    verbs = set(port_cli.NOT_PORTED)
+    for node in ast.walk(fn):
+        if isinstance(node, ast.Compare) and isinstance(node.left, ast.Name) \
+                and node.left.id == "a":
+            for c in node.comparators:
+                c = named.get(c.id, c) if isinstance(c, ast.Name) else c
+                verbs |= {s.value for s in ast.walk(c)
+                          if isinstance(s, ast.Constant)
+                          and isinstance(s.value, str)
+                          and not s.value.startswith("--")}
+    assert sorted(port_cli._KNOWN_VERBS) == sorted(verbs)
+    assert {"-test-video-decoder", "-test-video", "-test-image-loader",
+            "-simtest"} <= verbs
+
+
+def test_stopped_update_keeps_modified_rows(corpus, monkeypatch):
+    """A stopped -update removes a modified file's row only when it writes
+    the re-add: the rows it did not reach stay, are reported, and the next
+    update re-adds them."""
+    from cbird_tpu_torch.host.engine import Engine
+    from cbird_tpu_torch.params import IndexParams
+    d = _copy(corpus, "stop")
+    _run(port_cli.main, "-use", d, *ARGS, "-create", "-update")
+    params = IndexParams()
+    params.set_param("algos", "dct")
+    params.set_param("rsize", "128")
+    eng = Engine(d, params)
+    now = eng.db.last_added()
+    eng.db.write_last_added(now - 100)  # as if indexed 100 s ago
+    for f in os.listdir(d):
+        if f.endswith(".png"):
+            os.utime(os.path.join(d, f), (now - 200, now - 200))
+    modified = [os.path.join(d, f) for f in ("img001_s100.png",
+                                             "img003_s050.png")]
+    old = {p: eng.db.media_with_path(p).md5 for p in modified}
+    for p in modified:
+        with Image.open(p) as im:
+            im.transpose(Image.Transpose.FLIP_LEFT_RIGHT).save(p)
+        os.utime(p, (now - 50, now - 50))
+    count = eng.db.count()
+    real = eng.scanner.process_images
+
+    def stop_at_first(paths, progress=None):
+        for m in real(paths, progress):
+            eng.stop_update()
+            yield m
+    monkeypatch.setattr(eng.scanner, "process_images", stop_at_first)
+    stats = eng.update()
+    assert stats["stopped"] and stats["modified"] == 2
+    assert len(stats["modified_kept"]) == 1
+    kept, = stats["modified_kept"]
+    done, = set(modified) - {kept}
+    assert eng.db.count() == count
+    assert eng.db.media_with_path(kept).md5 == old[kept]
+    assert eng.db.media_with_path(done).md5 != old[done]
+    stats = Engine(d, params).update()
+    assert not stats["stopped"] and stats["modified"] == 2
+    assert eng.db.media_with_path(kept).md5 != old[kept]
+    assert eng.db.count() == count
