@@ -18,9 +18,11 @@ of the other kernels.
 
 On a CPU tensor the wrapper runs ``count_below_mma_plain`` (the same +-1
 product in float32); on any other device it launches the kernel or
-raises.  ``count_below_mma.launches`` counts launches of the unmasked
-int8 form, ``count_below_mma.masked_launches`` those of the masked int8
-form, ``count_below_mma.bf16_launches`` those of the bf16 form.
+raises.  The main form is a wgmma kernel on e4m3 +-1 operands with f16
+sums (the int8 rate; exact, |sum| < 2048; a row's hits added as
+integers).  ``count_below_mma.launches`` counts launches of its unmasked
+form, ``count_below_mma.masked_launches`` those of its masked form,
+``count_below_mma.bf16_launches`` those of the bf16 form.
 
 ``count_gate`` takes the roles of ``count_below_padded`` and
 ``mxu_enabled`` of ``cbird_tpu/ops/mxu_count.py`` (no padding: the kernel
@@ -96,10 +98,10 @@ def count_below_mma(needles: torch.Tensor, hay: torch.Tensor,
                     masked: bool = False, row_base: int = 0,
                     col_base: int = 0, bf16: bool = False) -> torch.Tensor:
     """Per needle, the number of valid haystack rows at Hamming distance
-    < ``threshold`` (>= 0), on the int8 tensor cores (``bf16``: the bf16
-    ones).  ``masked`` counts only global column id (``col_base + j``) >
-    global row id (``row_base + i``): the diagonal tile of the
-    self-search triangle.  Needle-row validity is not masked.
+    < ``threshold`` (>= 0), on the tensor cores at the 8-bit rate
+    (``bf16``: the bf16 one).  ``masked`` counts only global column id
+    (``col_base + j``) > global row id (``row_base + i``): the diagonal
+    tile of the self-search triangle.  Needle-row validity is not masked.
 
     @param needles [Q] int64, hay [N] int64, valid [N] bool
     @return [Q] int32 counts

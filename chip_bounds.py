@@ -4,23 +4,32 @@
 
 chip_smoke.py bounds the count kernels by instruction issue: 2 POPC a
 pair for the popcount K1 (count_below.cu), and for the tensor-core K1-mma
-(count_below_mma.cu) the int8 tensor rate and one INT32 instruction a
-pair of its epilogue, at a per-SM rate a clock and the card's maximum SM
-clock.  This script reads what the compiler made of both and what the
-card sustains:
+(count_below_mma.cu) the int8 / e4m3 tensor rate, at a per-SM rate a
+clock and the card's maximum SM clock.  This script reads what the
+compiler made of both and what the card sustains:
 
   sass     cuobjdump -sass of the count kernels (K1, K1-mma), the top-k
            scan (K4) and the band counts (K3) into OUT_DIR/<name>.sass,
-           and per loop (a backward branch) the opcode counts of its body
+           and per loop (a backward branch) the opcode counts of its body;
+           for the wgmma kernels (K1-mma, K2-mma) their main loop's
+           warpgroup MMAs (QGMMA for e4m3, IGMMA for s8), moves, shifts,
+           LEA, HADD2, barriers (SYNCS, BAR, WARPGROUP) and shared loads
+           and stores: the script fails if a main loop holds no *GMMA or
+           an mma.sync (IMMA, HMMA)
   probes   kernels of 8 independent chains a thread, timed with
            CUDA events: POPC chained through an add (a += popc(a)), the
            epilogue's compare and add (x += d; c += x > lim), K1's
-           pattern (c += popc(a ^ i)), K1-mma's product (4 chains of
-           int8 mma.sync m16n8k32 a warp) and K1-mma's inner loop
+           pattern (c += popc(a ^ i)), the mma.sync product (4 chains of
+           int8 mma.sync m16n8k32 a warp) and the mma.sync form's inner loop
            without its loads (4 m tiles of two chained k-steps from a
            folded init, their sign bits counted); each one's opcode counts
            a step, and the instructions it sustains per clock per SM (the
-           mma's per warp, and its int8 TOPS)
+           mma's per warp, and its int8 TOPS); and the int8 wgmma in
+           K1-mma's shape (m64n256k32, A from registers, B in the
+           kernel's shared-memory layout, one block an SM): chains on one
+           and on two warpgroups, and two warpgroups that count each
+           product's sign bits after it, as IGMMA per clock per SM and
+           int8 TOPS
   K1       the popcount K1 at Q=16384, N=2^21, t=5 (the K1 variants'
            shape, on operands made as chip_smoke's): 20 launches after
            K1-mma's two forms, as chip_smoke times them, and 100 alone,
@@ -89,7 +98,7 @@ __global__ void __launch_bounds__(256) probe(unsigned* out,
     tb[0] = c0; tb[1] = clock64(); tb[2] = g0; tb[3] = globaltimer();
   }
 }
-// K1-mma's product: CHAINS / 2 independent int8 mma.sync m16n8k32 chains a
+// the mma.sync product: CHAINS / 2 independent int8 m16n8k32 chains a
 // warp (their accumulators in 16 registers, so no spill at 8 blocks a SM)
 #define IMMA(x)                                                       \
   asm volatile("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "     \
@@ -115,7 +124,7 @@ __global__ void __launch_bounds__(256) imma_probe(unsigned* out,
     tb[0] = c0; tb[1] = clock64(); tb[2] = g0; tb[3] = globaltimer();
   }
 }
-// K1-mma's inner loop without its loads: 4 m tiles of distinct A
+// the mma.sync form's inner loop without its loads: 4 m tiles of distinct A
 // fragments against a B pair that changes each step, each tile two
 // chained k-steps from a folded init, then its sign bits counted
 __global__ void __launch_bounds__(256) imma_tile_probe(
@@ -158,6 +167,84 @@ __global__ void __launch_bounds__(256) imma_tile_probe(
     tb[0] = c0; tb[1] = clock64(); tb[2] = g0; tb[3] = globaltimer();
   }
 }
+// the int8 wgmma in K1-mma's shape (whose e4m3 runs at the same dense
+// rate): m64n256k32, A from registers, B (256 columns x 64 bytes of +-1)
+// from shared memory in the kernel's K-major layout; WGS warpgroups a
+// block, one block an SM, each a chain of two products a group on its own
+// 128 accumulators.  Chained: one group in flight while the next is
+// issued.  EPI: each group starts from 0 (scale-d 0) and waits, and its
+// sums' sign bits are counted (the int8 form's count)
+__device__ __forceinline__ void wgmma256(int (&d)[128], const unsigned (&a)[4],
+                                         unsigned long long desc, int scale) {
+#define D8(i)                                                              \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), \
+      "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "
+      "%122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56),
+        D8(64), D8(72), D8(80), D8(88), D8(96), D8(104), D8(112), D8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale));
+#undef D8
+}
+template <int WGS, bool EPI>
+__global__ void __launch_bounds__(128 * WGS, 1) wgmma_probe(
+    unsigned* out, unsigned long long* times, int iters) {
+  __shared__ __align__(1024) uint4 b[256 * 64 / 16];
+  const unsigned long long c0 = clock64(), g0 = globaltimer();
+  for (int i = threadIdx.x; i < 256 * 64 / 16; i += blockDim.x)
+    b[i] = make_uint4(0x01FF01FFu, 0xFF0101FFu, 0x0101FFFFu, 0xFFFF0101u);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+  const unsigned base = static_cast<unsigned>(__cvta_generic_to_shared(b));
+  // K-major, no swizzle: LBO 128 bytes, SBO 512 (8 columns of 64 bytes)
+  const unsigned long long desc =
+      ((base & 0x3FFFF) >> 4) | (8ull << 16) | (32ull << 32);
+  const unsigned a[4] = {0x01FF0101u * (threadIdx.x | 1), 0xFF01FF01u,
+                         0x0101FF01u ^ threadIdx.x, 0xFFFF01FFu};
+  int acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0;
+  int cnt = 0;
+#pragma unroll 1
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int i = 0; i < 128; ++i) asm volatile("" : "+r"(acc[i])::"memory");
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+    wgmma256(acc, a, desc, EPI ? 0 : 1);
+    wgmma256(acc, a, desc + 16, 1);  // the second k32 step, 256 bytes on
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    if (EPI) {
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+#pragma unroll
+      for (int i = 0; i < 128; ++i) {
+        asm volatile("" : "+r"(acc[i])::"memory");
+        cnt += static_cast<int>(static_cast<unsigned>(acc[i]) >> 31);
+      }
+    } else {
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+    }
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+#pragma unroll
+  for (int i = 0; i < 128; ++i) cnt += acc[i];
+  if (cnt == 0x12345678) out[0] = cnt;
+  if (threadIdx.x == 0) {
+    unsigned long long* tb = times + 4 * blockIdx.x;
+    tb[0] = c0; tb[1] = clock64(); tb[2] = g0; tb[3] = globaltimer();
+  }
+}
 extern "C" int cbird_probe(int op, void* out, void* times, int blocks,
                            int iters, unsigned d, unsigned lim,
                            void* stream) {
@@ -172,8 +259,14 @@ extern "C" int cbird_probe(int op, void* out, void* times, int blocks,
     probe<2><<<blocks, 256, 0, s>>>(o, t, iters, d, lim);
   else if (op == 3)
     imma_probe<<<blocks, 256, 0, s>>>(o, t, iters, d);
-  else
+  else if (op == 4)
     imma_tile_probe<<<blocks, 256, 0, s>>>(o, t, iters, d);
+  else if (op == 5)
+    wgmma_probe<2, false><<<blocks, 256, 0, s>>>(o, t, iters);
+  else if (op == 6)
+    wgmma_probe<1, false><<<blocks, 128, 0, s>>>(o, t, iters);
+  else
+    wgmma_probe<2, true><<<blocks, 256, 0, s>>>(o, t, iters);
   return (int)cudaGetLastError();
 }
 """
@@ -230,6 +323,25 @@ def loops(lines: list[str]) -> list[dict]:
             out.append({"to": key, "instructions": len(body),
                         "opcodes": dict(ops.most_common())})
     return out
+
+
+def wgmma_main_loop(fn: str, lps: list[dict]) -> dict:
+    """The tensor-core count's main loop (the loop with the most
+    warpgroup MMAs, *GMMA: QGMMA for e4m3, IGMMA for s8): its opcode
+    counts that matter, and ok when it holds a *GMMA and no mma.sync
+    (IMMA, HMMA)."""
+    def gmma(lp):
+        return sum(c for o, c in lp["opcodes"].items() if o.endswith("GMMA"))
+    body = max(lps, key=lambda lp: (gmma(lp), lp["instructions"]),
+               default={"opcodes": {}, "instructions": 0})
+    ops = body["opcodes"]
+    picked = {o: c for o, c in ops.items() if o.endswith("GMMA") or o in (
+        "IMMA", "HMMA", "MOV", "IMAD", "SHF", "LEA", "HADD2", "SYNCS", "BAR",
+        "WARPGROUP", "LDS", "STS")}
+    return {"check": "wgmma main loop", "function": fn,
+            "masked": "ILb1E" in fn, "instructions": body["instructions"],
+            "opcodes": picked,
+            "ok": gmma(body) > 0 and "IMMA" not in ops and "HMMA" not in ops}
 
 
 class Clock:
@@ -302,9 +414,10 @@ class Probes:
         self.times = torch.zeros(4 * self.blocks, dtype=torch.int64,
                                  device="cuda")
 
-    def run(self, op: int, iters: int) -> None:
+    def run(self, op: int, iters: int, blocks: int | None = None) -> None:
+        self.ran_blocks = blocks or self.blocks
         err = self.lib.cbird_probe(
-            op, self.buf.data_ptr(), self.times.data_ptr(), self.blocks,
+            op, self.buf.data_ptr(), self.times.data_ptr(), self.ran_blocks,
             iters, 0x9E3779B9, 0x6A09E667,
             self.torch.cuda.current_stream().cuda_stream)
         if err:
@@ -313,7 +426,8 @@ class Probes:
     def clock64_mhz(self) -> dict:
         """The SM clock of the last launch: its blocks' clock64 cycles over
         globaltimer ns (the timer CUDA events read)."""
-        tb = self.times.view(-1, 4).cpu().numpy().astype(np.float64)
+        tb = self.times.view(-1, 4)[:self.ran_blocks].cpu().numpy().astype(
+            np.float64)
         mhz = (tb[:, 1] - tb[:, 0]) / (tb[:, 3] - tb[:, 2]) * 1e3
         return {"min": float(mhz.min()), "median": float(np.median(mhz)),
                 "max": float(mhz.max())}
@@ -372,6 +486,12 @@ def main() -> int:
         for fn, lines in sass_functions(text).items():
             sass[fn] = loops(lines)
             print(json.dumps({"sass": fn, "loops": sass[fn]}), flush=True)
+    ok = True
+    for fn, lps in sass.items():
+        if "wgmma_count_kernel" in fn:
+            row = wgmma_main_loop(fn, lps)
+            ok &= row["ok"]
+            print(json.dumps(row), flush=True)
 
     pr = Probes(torch, so)
     iters = 1 << 19
@@ -384,7 +504,7 @@ def main() -> int:
         clk["clock64_mhz"] = pr.clock64_mhz()
         steps = pr.blocks * THREADS * CHAINS * iters
         fn = next(f for f in sass if (
-            f"probeILi{op}E" in f if op < 3
+            f"probeILi{op}E" in f and "wgmma" not in f if op < 3
             else ("imma_probe" if op == 3 else "imma_tile_probe") in f))
         body = max(sass[fn], key=lambda lp: lp["instructions"],
                    default={"opcodes": {}})
@@ -405,6 +525,27 @@ def main() -> int:
             row["int8_tops"] = (steps / 32 * per_step["IMMA"] * 8192
                                 / (ms * 1e-3) / 1e12)
         print(json.dumps(row), flush=True)
+
+    # the int8 wgmma, one block an SM: IGMMA a clock per SM (each
+    # m64n256k32: 64 x 256 x 32 multiply-adds), and the loop's opcodes
+    for op, name, wgs in ((5, "wgmma_chained_2wg", 2),
+                          (6, "wgmma_chained_1wg", 1),
+                          (7, "wgmma_sign_epilogue_2wg", 2)):
+        iters = 1 << 13
+        ms, clk = timed_ms(torch, lambda: pr.run(op, iters, sms), 5)
+        clk["clock64_mhz"] = pr.clock64_mhz()
+        n = sms * wgs * iters * 2
+        fn = next(f for f in sass if "wgmma_probe" in f and (
+            f"ILi{wgs}ELb{int(op == 7)}E" in f))
+        body = max(sass[fn], key=lambda lp: lp["instructions"],
+                   default={"opcodes": {}})
+        print(json.dumps({
+            "probe": name, "ms": ms, "clock": clk,
+            "IGMMA_per_clk_sm_at_max": n / (ms * 1e-3 * sms * max_mhz * 1e6),
+            "IGMMA_per_clk_sm_at_clock64": n / (
+                ms * 1e-3 * sms * clk["clock64_mhz"]["median"] * 1e6),
+            "int8_tops": n * 64 * 256 * 32 * 2 / (ms * 1e-3) / 1e12,
+            "loop_opcodes": body["opcodes"]}), flush=True)
 
     # the popcount K1 at the K1 variants' shape, on operands made as
     # chip_smoke's timing operands are: 20 launches after 20 of each form
@@ -438,7 +579,10 @@ def main() -> int:
             "popc_per_clk_sm_at_clock64": 2 * pairs / (
                 ms * 1e-3 * sms * clk["clock64_mhz_after"]["median"] * 1e6)}),
             flush=True)
-    return 0
+    if not ok:
+        print("chip_bounds: a wgmma kernel's main loop holds no warpgroup MMA "
+              "or an mma.sync", file=sys.stderr)
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

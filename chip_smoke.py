@@ -12,13 +12,14 @@ Phases, each printed on its own line (pass/fail, numbers, wall ms, card):
            once
   kernels  each kernel against its plain PyTorch twin on the card, exact
            equality, at the main path's shapes; both timed (CUDA events);
-           the tensor-core count (K1-mma, int8 and bf16) also against the
-           popcount K1, and the three timed at the K1 variants' shapes,
-           the triangle's tile and the 1024-needle gate's; its masked
-           form (K2-mma) against the plain twin and the popcount K2 on
-           diagonal tiles (the diagonal inside a 256-column step, on a
-           step edge, past and below the tile, 64-bit bases, a ragged
-           needle batch), timed beside the popcount K2;
+           the tensor-core count (K1-mma, wgmma and bf16) also against
+           the popcount K1, and the three timed at the K1 variants'
+           shapes, the triangle's tile and the 1024-needle gate's; its
+           masked form (K2-mma) against the plain twin and the popcount
+           K2 on diagonal tiles (the diagonal inside a step, on a step
+           edge, past and below the tile, 64-bit bases, a ragged needle
+           batch), timed beside the popcount K2; both also at the wgmma
+           kernel's tile edges (EDGE_Q, EDGE_N, EDGE_D, every t of K2_T);
            the top-k (K4) also timed at the query phase's and video (a)'s
            shapes (the wrapper, and its scan kernel alone), with the
            needles that took its second pass at each checked (k, bound)
@@ -117,6 +118,16 @@ MMA_SHAPES = ((16384, 1 << 21, 5), (16384, 1 << 21, 6), (16384, 1 << 16, 5),
 K2_T = (0, 5, 33, 63, 64, 65)
 K2_BASES = ((16384 + 100, 0), (32768, 0), (0, 65536), (147456, 0),
             ((1 << 33) + 5000, 1 << 33))
+# the wgmma kernel's tile edges (count_below_mma.cu: units of 192 rows,
+# three consumers of one m64 tile each, n-tiles of 256 columns, steps of
+# 1024, a ring of 2 steps and one of 4 packed steps): needle counts
+# around an m64 tile and one and two units' rows, column counts (one past
+# each ring's wrap) and diagonal offsets row_base - col_base (the m64,
+# n-tile and step edges, and past the tile), checked at every t of K2_T
+EDGE_Q = (1, 63, 65, 127, 129, 191, 193, 255, 257, 383, 385)
+EDGE_N = (1, 255, 257, 1023, 1025, 2049, 4097)
+EDGE_D = (0, 1, -1, 63, -63, 64, -64, 255, -255, 256, -256, 257, -257,
+          1023, -1023, 1024, -1024, 1025, -1025, 5000, -5000)
 # the video phase's collection and its plants
 VIDEOS, FRAMES, FRAME_STEP = 4096, 512, 12
 COPIES, COPY_LEN = 64, 200
@@ -585,6 +596,9 @@ class Smoke:
                "mma_hits": hits}
         del hay, vd, nd
         err["K2-mma"], out["K2-mma_checked"] = self.k2_mma_checks(rng)
+        edge_err, out["mma_edges_checked"] = self.mma_edge_checks(rng)
+        err["K1-mma"] = max(err["K1-mma"], edge_err["K1-mma"])
+        err["K2-mma"] = max(err["K2-mma"], edge_err["K2-mma"])
         # timing operands: 2^21 rows, 1% tombstones, needles near stored rows
         n_max = max(s[1] for s in MMA_SHAPES)
         h64 = rng.integers(0, 2**64, size=n_max, dtype=np.uint64)
@@ -662,6 +676,78 @@ class Smoke:
         out["K1-mma_pairs_per_s"] = qq * nn / (times[MMA_SHAPES[0]]["int8"]
                                               * 1e-3)
         return out
+
+    def mma_edge_checks(self, rng):
+        """K1-mma at every Q of EDGE_Q x N of EDGE_N and K2-mma at every
+        offset of EDGE_D (Q 65 and 257, N 1025 and 4097, 32- and 64-bit
+        ids), t in K2_T, each bit for bit against the plain twin and the
+        popcount K1 / K2.  The haystack: 8192 rows, a third of them copies
+        of a row 1-300 before with 0-4 bits flipped (near pairs on both
+        sides of any diagonal), 1% tombstones and an all-invalid slot of
+        1024 columns; the unmasked columns start on a 16-byte boundary and
+        off it.
+        @return ({kernel: max abs err}, what was checked)"""
+        torch = self.torch
+        from cbird_tpu_torch.ops import count_below as cb
+        from cbird_tpu_torch.ops import count_below_mma as cm
+        n = 8192
+        h64 = rng.integers(0, 2**64, size=n, dtype=np.uint64)
+        dup = np.nonzero(rng.random(n) < 0.3)[0]
+        dup = dup[dup >= 300]
+        src = dup - rng.integers(1, 301, len(dup))
+        h64[dup] = self.flip_bits(h64[src], rng.integers(0, 5, len(dup)), rng)
+        valid = rng.random(n) > 0.01
+        valid[2048:3072] = False
+        hay = torch.from_numpy(h64.view(np.int64)).to(self.dev)
+        vd = torch.from_numpy(valid).to(self.dev)
+        nd = hay[5000:5000 + max(EDGE_Q)] ^ 0x11
+        err = {"K1-mma": 0.0, "K2-mma": 0.0}
+        hits, calls = {"K1-mma": 0, "K2-mma": 0}, 0
+        for c0 in (1024, 1025):
+            for q in EDGE_Q:
+                for nn in EDGE_N:
+                    args = (nd[:q], hay[c0:c0 + nn], vd[c0:c0 + nn])
+                    for t in K2_T:
+                        got = cm.count_below_mma(*args, t)
+                        torch.cuda.synchronize()
+                        what = f"K1-mma edge c0={c0} q={q} n={nn} t={t}"
+                        err["K1-mma"] = max(
+                            err["K1-mma"],
+                            self.same(got, cm.count_below_mma_plain(*args, t),
+                                      what),
+                            self.same(got, cb.count_below(*args, t), what))
+                        hits["K1-mma"] += int(got.sum())
+                        calls += 1
+        s = 3000
+        for d in EDGE_D:
+            for q in (65, 257):
+                for nn in (1025, 4097):
+                    # rows at ids s + d, columns at s, so that the
+                    # diagonal's offset is d; the rows' hashes from the
+                    # same ids (clamped into the store past the tile)
+                    r = min(max(s + d, 0), n - q)
+                    args = (hay[r:r + q], hay[s:s + nn], vd[s:s + nn])
+                    for base in (0, 1 << 33):
+                        kw = dict(masked=True, row_base=base + s + d,
+                                  col_base=base + s)
+                        for t in K2_T:
+                            got = cm.count_below_mma(*args, t, **kw)
+                            torch.cuda.synchronize()
+                            what = (f"K2-mma edge d={d} q={q} n={nn} "
+                                    f"base={base} t={t}")
+                            err["K2-mma"] = max(
+                                err["K2-mma"],
+                                self.same(got, cm.count_below_mma_plain(
+                                    *args, t, **kw), what),
+                                self.same(got, cb.count_below(*args, t, **kw),
+                                          what))
+                            hits["K2-mma"] += int(got.sum())
+                            calls += 1
+        if not all(hits.values()):
+            raise AssertionError(f"mma edge checks: no hit ({hits})")
+        return err, {"Q": list(EDGE_Q), "N": list(EDGE_N),
+                     "offsets": list(EDGE_D), "t": list(K2_T),
+                     "launches": calls, "hits": hits}
 
     def k2_mma_checks(self, rng):
         """K2-mma against its plain twin and the popcount K2 on a ragged

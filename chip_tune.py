@@ -1,17 +1,18 @@
 """Block shapes of the top-k scan (K4) and the band counts (K3), and the
-epilogue forms of the tensor-core count (K1-mma), measured on one NVIDIA
-GPU.
+forms of the tensor-core count (K1-mma), measured on one NVIDIA GPU.
 
     python3 chip_tune.py [k4] [k3] [mma]     (default: all three)
 
 Writes every variant below of ``csrc/hamming_topk.cu``,
 ``csrc/band_count.cu`` and ``csrc/count_below_mma.cu`` to ``build/tune/``
-(a copy of the source with its shape constants or its epilogue edited;
-the package always builds the sources as they are), builds them with
+(a copy of the source with its shape constants edited, or parts of its
+code replaced by the text this script holds; the package always builds
+the sources as they are), builds them with
 nvcc, one each, all at once; checks that each variant's outputs equal
 the first variant's (or the plain band's); then times each one with CUDA
 events (20 launches, two rounds, the variants in turn), on
-chip_smoke.py's operands:
+chip_smoke.py's operands.  A variant the compiler or the card refuses is
+reported and left out (the run then exits non-zero):
 
   K4  one first-pass scan (bound 5, k=64): Q=1 and Q=64 over a 10M-row
       store, Q=1024 over 2^20 rows.  Variants: threads a block
@@ -23,19 +24,20 @@ chip_smoke.py's operands:
       columns of 32 rows (by s as ``split_for`` sets it, or fixed), each
       taking SPAN columns in turn, columns staged through shared memory
       or read through L1.
-  mma K1-mma's int8 form, unmasked at Q=16384 x 65536 (the triangle's
-      tile), Q=1024 x 2^20 (the 1024-needle gate) and Q=16384 x 2^21 (the
-      video gate), masked on the diagonal tile of the first two; t=5.
-      Variants: the epilogue, the m tiles a warp, the registers and the
-      grid.  ``fold``: the product starts at the column's folded
-      threshold and a hit is a sign bit, added as it is; 4 m tiles (64
-      rows) a warp; a grid of ~16 blocks a SM (the source).  ``fold, 2
-      m tiles`` / ``8 m tiles``: 32 / 128 rows a warp; ``fold, >= n
-      blocks a SM``: registers capped for n resident blocks; ``fold,
-      grid of n blocks a SM``; ``compare``: the product starts at 0 and
-      is compared with the column's limit, then added; ``byte_perm``:
-      the folded form, each row's two sign bytes gathered with
-      ``__byte_perm`` and counted with ``__popc``.
+  mma K1-mma (wgmma), unmasked at Q=16384 x 65536 (the triangle's tile),
+      Q=1024 x 2^20 (the 1024-needle gate) and Q=16384 x 2^21 (the video
+      gate), masked on the diagonal tile of the first two; t=5.  The
+      source: e4m3 operands, three consumer warpgroups, n-tiles of 256
+      columns, steps of 1024 columns in a ring of 2 (packed: 4), the
+      threshold in a bias lane.  Variants: two consumers (one or two m64
+      tiles each), int8 operands with s32 sums, the threshold as a limit
+      at the count (K = 64), ring and step sizes, n-tiles of 128 (one or
+      two m64 tiles a consumer), a row's hits summed in f32 across tiles
+      (exact only to 2^24 a lane): the forms that measured slower live
+      only here, as edits of the source.  Then
+      forms that leave out a part of the work (the unpack, the count, the
+      products, all three, and the copies too), timed and not checked:
+      what the time is made of.
 
 The first variant of each list is the shape the sources hold.  Prints
 the card's name and power limit, then one JSON line per variant.  Exits
@@ -85,54 +87,353 @@ def k3_edits(v) -> tuple:
     return edits + (() if v[3] else L1_EDITS)
 
 
-# K1-mma's epilogue forms, as edits of the source (which holds "fold")
-MMA_COUNT = ("    cnt[m][0] += T::sign(c[m][0]) + T::sign(c[m][1]);\n"
-             "    cnt[m][1] += T::sign(c[m][2]) + T::sign(c[m][3]);\n")
-MMA_BOUNDS = "__launch_bounds__(THREADS)\nmma_count"
-MMA_VARIANTS = {
-    "fold": (),
-    "fold, 2 m tiles": (("constexpr int MT = 4;", "constexpr int MT = 2;"),),
-    "fold, 8 m tiles": (("constexpr int MT = 4;", "constexpr int MT = 8;"),),
-    "fold, grid of 4 blocks a SM": (("16 * sms", "4 * sms"),),
-    "fold, grid of 8 blocks a SM": (("16 * sms", "8 * sms"),),
-    "fold, grid of 32 blocks a SM": (("16 * sms", "32 * sms"),),
-    "fold, >= 2 blocks a SM": ((MMA_BOUNDS, MMA_BOUNDS.replace(
-        "THREADS)", "THREADS, 2)")),),
-    "fold, >= 3 blocks a SM": ((MMA_BOUNDS, MMA_BOUNDS.replace(
-        "THREADS)", "THREADS, 3)")),),
-    "fold, >= 4 blocks a SM": ((MMA_BOUNDS, MMA_BOUNDS.replace(
-        "THREADS)", "THREADS, 4)")),),
-    "compare": (
-        ("Acc fold(int t) { return 64 - 2 * t; }",
-         "Acc fold(int t) { return 2 * t - 64; }"),
-        ("Acc never() { return 1 << 20; }",
-         "Acc never() { return -(1 << 20); }"),
-        ("  Acc c[MT][4];", "  Acc c[MT][4], l[MT][4];"),
-        ("    c[m][0] = c[m][2] = i0;\n    c[m][1] = c[m][3] = i1;\n",
-         "    c[m][0] = c[m][1] = c[m][2] = c[m][3] = 0;\n"
-         "    l[m][0] = l[m][2] = i0;\n    l[m][1] = l[m][3] = i1;\n"),
-        ("c[m][e] = T::never();", "l[m][e] = T::never();"),
-        (MMA_COUNT,
-         "    cnt[m][0] += (c[m][0] < l[m][0]) + (c[m][1] < l[m][1]);\n"
-         "    cnt[m][1] += (c[m][2] < l[m][2]) + (c[m][3] < l[m][3]);\n")),
-    "byte_perm": (
-        (MMA_COUNT,
-         "    cnt[m][0] += __popc(__byte_perm(c[m][0], c[m][1], 0x73)"
-         " & 0x8080u);\n"
-         "    cnt[m][1] += __popc(__byte_perm(c[m][2], c[m][3], 0x73)"
-         " & 0x8080u);\n"),),
+# K1-mma's forms, as edits of its source (the first is the source as it
+# is).  An edit is (old, new), or ((begin, end), new) to replace the text
+# from begin up to end.
+MMA_SOURCE = ("e4m3, 3 consumers, n256, steps of 1024, ring 2, raw ring 4, "
+              "bias lane")
+CONS2 = ("constexpr int NCONS = 3;", "constexpr int NCONS = 2;")
+
+
+def steps(sub: int, ring: int) -> tuple:
+    """Steps of ``sub`` columns in a ring of ``ring`` slots."""
+    return (("constexpr int SUB = 1024;", f"constexpr int SUB = {sub};"),
+            ("constexpr int STAGES = 2;", f"constexpr int STAGES = {ring};"))
+
+
+# n-tiles of 128 columns: the m64n128k32 product
+N128 = (("constexpr int WN = 256;", "constexpr int WN = 128;"),
+        ("#undef D8", r"""template <int SCALE_D>
+__device__ __forceinline__ void mma_e4m3(int (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.f16.e4m3.e4m3 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : D8(0), D8(8), D8(16), D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(SCALE_D));
 }
+#undef D8"""))
+
+# int8 +-1 operands, s32 sums (128 registers an n256 tile, so two
+# consumers), a hit the sum's sign bit added by one shift-and-add
+# (LEA.HI), in four partial sums a row
+INT8 = (
+    ("constexpr int NACC = WN / 4;", "constexpr int NACC = WN / 2;"),
+    ("  return (x & 0x01010101u) * 0x80u + 0x38383838u;",
+     "  return (x & 0x01010101u) * 0xFEu + 0x01010101u;"),
+    ("  if (!counted) return 0x7Eu;\n"
+     "  const int b = 64 - 2 * t;\n"
+     "  const uint32_t sign = b < 0 ? 0x80u : 0u;\n"
+     "  const int a = b < 0 ? -b : b;\n"
+     "  return (e4m3(a & ~15) | sign) | ((e4m3(a & 15) | sign) << 8);",
+     "  return counted ? static_cast<uint32_t>(64 - 2 * t) & 0xFFu : 0x7F7Fu;"),
+    ("a[2][rr] = qd == 0 ? 0x3838u : 0u;", "a[2][rr] = qd == 0 ? 0x0101u : 0u;"),
+    ("#undef D8", r"""template <int SCALE_D>
+__device__ __forceinline__ void mma_s8(int (&d)[128], const uint32_t (&a)[4],
+                                      uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "
+      "%122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p;\n"
+      "}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56),
+        D8(64), D8(72), D8(80), D8(88), D8(96), D8(104), D8(112), D8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(SCALE_D));
+}
+#undef D8"""),
+    ("        mma_e4m3<0>(acc, a[2], b_desc(tile + 4 * 128, 0));\n"
+     "        mma_e4m3<1>(acc, a[0], b_desc(tile));\n"
+     "        mma_e4m3<1>(acc, a[1], b_desc(tile + 256));",
+     "        mma_s8<0>(acc, a[2], b_desc(tile + 4 * 128, 0));\n"
+     "        mma_s8<1>(acc, a[0], b_desc(tile));\n"
+     "        mma_s8<1>(acc, a[1], b_desc(tile + 256));"),
+    # acc[4k + e] is row g + 8 (e >> 1), column 8k + 2qd + (e & 1)
+    (("template <bool MASK, int N>\n"
+      "__device__ __forceinline__ void count_rows(", "// mode 0: the tile"),
+     r"""template <bool MASK, int N>
+__device__ __forceinline__ void count_rows(const int (&acc)[N], int dm,
+                                           int thr, int (&cnt)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    int part[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int k = 0; k < N / 4; ++k)
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1)
+        if (!MASK || 8 * k + e1 - 8 * r + thr > dm)
+          part[(2 * k + e1) & 3] += static_cast<int>(
+              static_cast<uint32_t>(acc[4 * k + 2 * r + e1]) >> 31);
+    cnt[r] += part[0] + part[1] + part[2] + part[3];
+  }
+}
+
+"""))
+
+# the threshold as each column's f16 limit 2t - 64 (-1024: never) in a
+# slot of its own, applied at the count (lim - (-dot) saturated), K = 64
+LIMITS = (
+    ("constexpr int GROUP = 8 * 16 * 5;", "constexpr int GROUP = 8 * 16 * 4;"),
+    ("constexpr int SMEM = 1024 + STAGES * B_BYTES +",
+     "constexpr int SMEM = 1024 + STAGES * (B_BYTES + 2 * SUB) +"),
+    ("  uint32_t raw;          // RAW_STAGES barriers",
+     "  uint32_t raw;          // RAW_STAGES barriers\n"
+     "  uint32_t lim;          // STAGES x 2 SUB: the limits, lim_at order"),
+    ("  const uint32_t bars = r.raw_v + RAW_STAGES * RAW_V;",
+     "  r.lim = r.raw_v + RAW_STAGES * RAW_V;\n"
+     "  const uint32_t bars = r.lim + STAGES * 2 * SUB;"),
+    ("__device__ __forceinline__ uint32_t lds8(uint32_t addr) {", r"""__device__ __forceinline__ void sts16(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b16 [%0], %1;" ::"r"(addr),
+               "h"(static_cast<unsigned short>(v)) : "memory");
+}
+__device__ __forceinline__ int4 lds128(uint32_t addr) {
+  int4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr)
+               : "memory");
+  return v;
+}
+// f16 bits of an integer |v| <= 1024, exact
+__device__ __forceinline__ uint32_t f16_int(int v) {
+  if (v == 0) return 0;
+  const uint32_t sign = v < 0 ? 0x8000u : 0u;
+  const int a = v < 0 ? -v : v;
+  const int e = 31 - __clz(a);
+  return sign | static_cast<uint32_t>((e + 15) << 10) |
+         static_cast<uint32_t>(((a << 10) >> e) & 0x3FF);
+}
+// the byte offset of column j's limit in a slot: the words of columns
+// 8k + 2qd and + 1 for four n8 blocks k share 16 bytes, so a consumer
+// thread reads four in one load
+__device__ __forceinline__ uint32_t lim_at(int j) {
+  const int k = j >> 3, qd = (j >> 1) & 3;
+  return static_cast<uint32_t>(((k >> 2) * 4 + qd) * 16 + (k & 3) * 4 +
+                               (j & 1) * 2);
+}
+__device__ __forceinline__ uint32_t lds8(uint32_t addr) {"""),
+    ("  const uint32_t fold = bias_word(t, true), never = bias_word(t, false);",
+     "  const uint32_t fold = f16_int(2 * t - 64), never = f16_int(-1024);"),
+    ("      sts128(col + 4 * 128, ok ? fold : never, 0, 0, 0);",
+     "      sts16(r.lim + slot * 2 * SUB + lim_at(j), ok ? fold : never);"),
+    ("__device__ __forceinline__ void count_rows(const int (&acc)[N], int dm,",
+     "__device__ __forceinline__ void count_rows(const int (&acc)[N],\n"
+     "                                           const uint32_t (&lw)[N / 2],"
+     " int dm,"),
+    ('"r"(0u), "r"(acc[2 * k + r])', '"r"(lw[k]), "r"(acc[2 * k + r])'),
+    (("template <int N>\n"
+      "__device__ __forceinline__ void count_tile(", "template <bool MASKED>"),
+     r"""template <int N>
+__device__ __forceinline__ void count_tile(int (&acc)[N], int mode, int dm,
+                                           int thr, uint32_t lim,
+                                           int (&cnt)[2]) {
+  acc_fence(acc);
+  if (!mode) return;
+  uint32_t lw[N / 2];
+#pragma unroll
+  for (int k = 0; k < N / 2; k += 4) {
+    const int4 v = lds128(lim + 16 * k);
+    lw[k] = v.x; lw[k + 1] = v.y; lw[k + 2] = v.z; lw[k + 3] = v.w;
+  }
+  if (mode == 2)
+    count_rows<true>(acc, lw, dm, thr, cnt);
+  else
+    count_rows<false>(acc, lw, dm, thr, cnt);
+}
+
+"""),
+    ("        mma_e4m3<0>(acc, a[2], b_desc(tile + 4 * 128, 0));\n"
+     "        mma_e4m3<1>(acc, a[0], b_desc(tile));",
+     "        mma_e4m3<0>(acc, a[0], b_desc(tile));"),
+    ("for (int e = 0; e < 12; ++e) asm volatile",  # no bias step's A
+     "for (int e = 0; e < 8; ++e) asm volatile"),
+    ("        count_tile(acc, mode, dm, thr, cnt);",
+     "        count_tile(acc, mode, dm, thr,\n"
+     "                   r.lim + slot * 2 * SUB + (nt * (WN / 32) * 4 + qd) * 16,"
+     "\n                   cnt);"),
+)
+
+# two m64 tiles a consumer: every product of a step's n-tile on both
+MT2 = (
+    ("constexpr int BQ = NCONS * 64;", "constexpr int BQ = NCONS * 128;"),
+    (("template <bool MASKED>\n__device__ __forceinline__ void consumer(",
+      "template <bool MASKED>\n__global__"), r"""template <bool MASKED>
+__device__ __forceinline__ void consumer(
+    const Ring& r, Walk w, const unsigned long long* __restrict__ needles,
+    int q, int* __restrict__ out) {
+  const int c = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0) - 1;
+  const int tid = threadIdx.x & 127;
+  const int wp = tid >> 5, lane = tid & 31, g = lane >> 2, qd = lane & 3;
+  const int thr = 2 * qd - 16 * wp - g;
+  uint32_t a[2][3][4];
+  int acc[2][NACC];
+  bool more = w.unit<MASKED>();
+  int i = 0;
+  while (more) {
+    const int r0 = w.y * BQ + c * 128;
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = r0 + 64 * m + 16 * wp + g + 8 * rr;
+        const unsigned long long h = row < q ? ~needles[row] : 0ull;
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            a[m][s][2 * hf + rr] = pm1_word(h, 8 * s + 4 * hf + qd);
+        a[m][2][rr] = qd == 0 ? 0x3838u : 0u;
+        a[m][2][2 + rr] = 0u;
+      }
+#pragma unroll
+    for (int e = 0; e < 24; ++e)
+      asm volatile("" : "+r"(a[e / 12][(e >> 2) % 3][e & 3]));
+    int cnt[2][2] = {{0, 0}, {0, 0}};
+    do {
+      const int slot = i % STAGES;
+      bar_wait(r.full + 8 * slot, (i / STAGES) & 1);
+      const uint32_t sb = r.b + slot * B_BYTES;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        int mode[2], dm[2];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          const long long d = w.row_base + r0 + 64 * m -
+                              (w.col_base + w.c0 + nt * WN);
+          mode[m] = r0 + 64 * m >= q ? 0 : !MASKED ? 1
+                  : d >= WN - 1 ? 0 : d < -63 ? 1 : 2;
+          dm[m] = mode[m] == 2 ? static_cast<int>(d) : 0;
+        }
+        acc_fence(acc[0]);
+        acc_fence(acc[1]);
+        wgmma_fence();
+        const uint32_t tile = sb + nt * (WN / 8) * GROUP;
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          mma_e4m3<0>(acc[m], a[m][2], b_desc(tile + 4 * 128, 0));
+          mma_e4m3<1>(acc[m], a[m][0], b_desc(tile));
+          mma_e4m3<1>(acc[m], a[m][1], b_desc(tile + 256));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+          count_tile(acc[m], mode[m], dm[m], thr, cnt[m]);
+      }
+      if (lane == 0) bar_arrive(r.empty + 8 * slot);
+      ++i;
+      w.c0 += SUB;
+    } while (w.c0 < w.cend);
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        int v = cnt[m][rr];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        const int row = r0 + 64 * m + 16 * wp + g + 8 * rr;
+        if (qd == 0 && row < q && v) atomicAdd(out + row, v);
+      }
+    w.u += gridDim.x;
+    more = w.unit<MASKED>();
+  }
+}
+
+"""),
+)
+
+# a row's hits summed in f32 across tiles, converted once at the end:
+# exact only while a lane's part of a row's count stays under 2^24
+F32_SUMS = (
+    (("    int v;\n", "  }\n}\n\n// mode 0"), r"""    float lo, hi;
+    asm("{\n.reg .f16 l, h;\nmov.b32 {l, h}, %2;\ncvt.f32.f16 %0, l;\n"
+        "cvt.f32.f16 %1, h;\n}" : "=f"(lo), "=f"(hi) : "r"(part[0]));
+    cnt[r] = __float_as_int(__int_as_float(cnt[r]) + lo + hi);
+"""),
+    ("      int v = cnt[rr];",
+     "      int v = static_cast<int>(__int_as_float(cnt[rr]));"),
+)
+
+MMA_VARIANTS = {
+    MMA_SOURCE: (),
+    "row sums in f32 (exact to 2^24 a lane)": F32_SUMS,
+    "2 consumers": (CONS2,),
+    "2 consumers, 2 m64": (CONS2, *MT2),
+    "int8, s32 sums (LEA.HI count), 2 consumers": (*INT8, CONS2),
+    "limits at the count (K = 64)": LIMITS,
+    "raw ring 2": (("constexpr int RAW_STAGES = 4;",
+                    "constexpr int RAW_STAGES = 2;"),),
+    "steps of 768, ring 2": (("constexpr int SUB = 1024;",
+                              "constexpr int SUB = 768;"),),
+    "steps of 512, ring 2": steps(512, 2),
+    "steps of 512, ring 3": steps(512, 3),
+    "steps of 512, ring 4": steps(512, 4),
+    "steps of 256, ring 2": steps(256, 2),
+    "steps of 256, ring 3": steps(256, 3),
+    "steps of 256, ring 4": steps(256, 4),
+    "n128": N128,
+    "n128, 2 m64": (*N128, *MT2),
+}
+# forms that leave out a part of the work, to see what the time is made
+# of: their counts are wrong, so they are timed and not checked
+NO_UNPACK = ("for (int half = 0; half < SUB / 128; ++half) {",
+             "for (int half = 0; half < 0; ++half) {")
+NO_COUNT = ("  acc_fence(acc);\n  if (mode == 2)",  # one sum kept alive
+            "  acc_fence(acc);\n  if (mode < 5) {\n"
+            "    cnt[0] += acc[0] & 1;\n    return;\n  }\n  if (mode == 2)")
+NO_MMA = ("        mma_e4m3<0>(acc, a[2], b_desc(tile + 4 * 128, 0));\n"
+          "        mma_e4m3<1>(acc, a[0], b_desc(tile));\n"
+          "        mma_e4m3<1>(acc, a[1], b_desc(tile + 256));\n", "")
+NO_COPY = ("  bar_expect(bar, static_cast<uint32_t>((h1 - h0) + (v1 - v0)));\n"
+           "  bulk_load(r.raw_h + slot * RAW_H, reinterpret_cast<const void*>(h0),\n"
+           "            static_cast<uint32_t>(h1 - h0), bar);\n"
+           "  bulk_load(r.raw_v + slot * RAW_V, reinterpret_cast<const void*>(v0),\n"
+           "            static_cast<uint32_t>(v1 - v0), bar);",
+           "  bar_arrive(bar);")
+MMA_DIAG = {
+    "diag: no unpack": (NO_UNPACK,),
+    "diag: no count": (NO_COUNT,),
+    "diag: no mma": (NO_MMA,),
+    "diag: ring only (no unpack, count, mma)": (NO_UNPACK, NO_COUNT, NO_MMA),
+    "diag: ring only, no copies": (NO_UNPACK, NO_COUNT, NO_MMA, NO_COPY),
+}
+MMA_FORMS = {**MMA_VARIANTS, **MMA_DIAG}
 
 
 def build_variant(name: str, edits: tuple) -> str:
-    """``csrc/<name>.cu`` with each (old, new) edit made (old must occur),
-    compiled as the package compiles it, into ``build/tune/``.
+    """``csrc/<name>.cu`` with each edit made in turn (its text must
+    occur): (old, new) replaces old; ((begin, end), new) replaces the text
+    from begin up to end.  Compiled as the package compiles it, into
+    ``build/tune/``.
     @return the library path"""
     from cbird_tpu_torch import _build
     with open(os.path.join(_build.CSRC, f"{name}.cu")) as f:
         src = f.read()
     for old, new in edits:
-        if old not in src:
+        if isinstance(old, tuple):
+            i = src.find(old[0])
+            j = src.find(old[1], i + len(old[0])) if i >= 0 else -1
+            if j < 0:
+                raise RuntimeError(f"chip_tune: {old!r} not in {name}.cu")
+            old = src[i:j]
+        elif old not in src:
             raise RuntimeError(f"chip_tune: {old!r} not in {name}.cu")
         src = src.replace(old, new)
     out = os.path.join(os.path.dirname(_build.BUILD_DIR), "tune")
@@ -188,15 +489,25 @@ def main() -> int:
     s = chip_smoke.Smoke(torch)
     jobs = ([("hamming_topk", v) for v in K4_VARIANTS] * ("k4" in parts)
             + [("band_count", v) for v in K3_VARIANTS] * ("k3" in parts)
-            + [("count_below_mma", v) for v in MMA_VARIANTS]
+            + [("count_below_mma", v) for v in MMA_FORMS]
             * ("mma" in parts))
     edits = {"hamming_topk": k4_edits, "band_count": k3_edits,
-             "count_below_mma": MMA_VARIANTS.get}
+             "count_below_mma": MMA_FORMS.get}
+    def build(job):
+        try:
+            return build_variant(job[0], edits[job[0]](job[1]))
+        except RuntimeError as e:  # a form the compiler refuses
+            print(f"chip_tune: {job[0]} {job[1]}: {str(e)[-600:]}",
+                  file=sys.stderr)
+            return None
     with cf.ThreadPoolExecutor(len(jobs)) as ex:
-        paths = list(ex.map(lambda j: build_variant(j[0], edits[j[0]](j[1])),
-                            jobs))
+        paths = list(ex.map(build, jobs))
     libs = {}
     for (name, v), path in zip(jobs, paths):
+        if path is None:
+            if name == "count_below_mma":
+                MMA_FORMS.pop(v, None)
+            continue
         lib = ctypes.CDLL(path)
         if name == "hamming_topk":
             lib.cbird_topk_scan.argtypes = tk._SCAN_ARGS
@@ -211,7 +522,7 @@ def main() -> int:
         lib.cbird_error_string.argtypes = [ctypes.c_int]
         lib.cbird_error_string.restype = ctypes.c_char_p
         libs[(name, v)] = lib
-    ok = True
+    ok = None not in paths
     if "k4" in parts:
         ok &= tune_k4(torch, s, libs)
     if "k3" in parts:
@@ -222,7 +533,7 @@ def main() -> int:
 
 
 def tune_mma(torch, s, libs) -> bool:
-    """K1-mma's epilogue forms against each other (module docstring)."""
+    """K1-mma's forms against each other (module docstring)."""
     import chip_smoke
     from cbird_tpu_torch import _build
     rng = np.random.default_rng(chip_smoke.SEED + 7)
@@ -243,10 +554,11 @@ def tune_mma(torch, s, libs) -> bool:
         "Q=16384 N=2^21": (nd, hay, vd, False)}
     stream = torch.cuda.current_stream().cuda_stream
     ok = True
-    times = {v: {} for v in MMA_VARIANTS}
+    forms = list(MMA_FORMS)  # less those the card refuses
+    times = {v: {} for v in forms}
     for shape, (q, h, v, masked) in shapes.items():
         outs = {m: torch.empty(q.numel(), dtype=torch.int32, device="cuda")
-                for m in MMA_VARIANTS}
+                for m in forms}
 
         def launch(m):
             lib = libs[("count_below_mma", m)]
@@ -254,20 +566,29 @@ def tune_mma(torch, s, libs) -> bool:
                 q.data_ptr(), q.numel(), h.data_ptr(), v.data_ptr(),
                 h.numel(), chip_smoke.T, 0, int(masked), 0, 0,
                 outs[m].data_ptr(), stream), "count_below_mma")
-        for m in MMA_VARIANTS:
-            launch(m)()
-            torch.cuda.synchronize()
-            if not torch.equal(outs[m], outs["fold"]):
+        for m in list(forms):
+            try:
+                launch(m)()
+                torch.cuda.synchronize()
+            except RuntimeError as e:  # a form the card refuses
+                print(f"chip_tune: K1-mma {m}: {e}", file=sys.stderr)
+                ok = False
+                del times[m]
+                forms.remove(m)
+                continue
+            if m in MMA_VARIANTS and not torch.equal(outs[m],
+                                                      outs[MMA_SOURCE]):
                 print(f"chip_tune: K1-mma {m} differs at {shape}",
                       file=sys.stderr)
                 ok = False
         for _ in range(2):
-            for m in MMA_VARIANTS:
+            for m in forms:
                 times[m].setdefault(shape, []).append(s.event_ms(launch(m),
                                                                  20))
-    for m in MMA_VARIANTS:
-        print(json.dumps({"kernel": "K1-mma int8", "epilogue": m,
-                          "t": chip_smoke.T, "ms": times[m]}), flush=True)
+    for m in times:
+        print(json.dumps({"kernel": "K1-mma", "form": m,
+                          "checked": m in MMA_VARIANTS, "t": chip_smoke.T,
+                          "ms": times[m]}), flush=True)
     return ok
 
 

@@ -6,9 +6,9 @@ interpret mode), a numpy golden and the popcount K1 / K2; and the routes
 of the image gate and the self-search triangle through them.
 
 Counts are integers and must be equal exactly.  On the CPU the wrapper
-runs its plain PyTorch twin; the CUDA kernel itself, in both its int8 and
-bf16 forms, is compared with that twin on the card (``-m cuda`` here, and
-chip_smoke.py).
+runs its plain PyTorch twin; the CUDA kernel itself, in both its wgmma
+(e4m3) and bf16 forms, is compared with that twin on the card (``-m
+cuda`` here, and chip_smoke.py).
 """
 
 import numpy as np
@@ -128,8 +128,10 @@ def test_count_gate_and_threshold_range(data):
 
 # (row_base, col_base, t) of a 256 x 1024 tile: the diagonal inside it,
 # starting at its corner (an edge), and past it (every column above every
-# row, so the mask drops nothing)
-MASK_CASES = [(512, 256, 5), (1024, 1024, 33), (0, 2048, 63)]
+# row, so the mask drops nothing); then row_base - col_base at +-64 and
+# +-257, beside the wgmma kernel's m64 and n-tile edges
+MASK_CASES = [(512, 256, 5), (1024, 1024, 33), (0, 2048, 63),
+              (320, 256, 5), (256, 320, 33), (769, 512, 63), (512, 769, 5)]
 
 
 def _golden_masked(hashes, valid, needles, t, rb, c0):
@@ -251,6 +253,34 @@ def test_wrapper_has_no_fallback(monkeypatch):
     assert _counters() == before
 
 
+# the wgmma kernel's tile edges (csrc/count_below_mma.cu: units of 192
+# rows, three consumers of one m64 tile each, n-tiles of 256 columns,
+# steps of 1024 columns, a ring of 2 steps and one of 4 packed steps):
+# needle counts around an m64 tile and a unit's rows (one and two units),
+# column counts around a tile, a step, one past the ring's wrap and the
+# packed ring's, and the diagonal's offset (row_base - col_base) on and
+# beside the m64, n-tile and step edges and past the tile
+EDGE_Q = (1, 63, 65, 127, 129, 191, 193, 255, 257, 383, 385)
+EDGE_N = (1, 255, 257, 1023, 1025, 2049, 4097)
+EDGE_T = (0, 5, 33, 63, 64, 65)
+EDGE_D = (0, 1, -1, 63, -63, 64, -64, 127, -127, 128, -128, 255, -255, 256,
+          -256, 257, -257, 1023, -1023, 1024, -1024, 1025, -1025, 1500, -1500)
+
+
+def _edge_store(n=6144, seed=13):
+    """Hashes whose rows are often near copies (0-4 bits) of a row 1-300
+    before them, so near pairs lie on both sides of any diagonal; 1%
+    tombstones and an all-invalid slot of 256 columns."""
+    rng = np.random.default_rng(seed)
+    h = rng.integers(0, 2**64, size=n, dtype=np.uint64)
+    for i in np.nonzero(rng.random(n) < 0.3)[0]:
+        if i >= 300:
+            h[i] = _flip(h[i - rng.integers(1, 301)], int(rng.integers(0, 5)))
+    valid = rng.random(n) > 0.01
+    valid[1024:1280] = False
+    return h, valid
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -302,3 +332,88 @@ def test_masked_kernel_matches_plain_on_card(data, cuda, bf16):
     want = list(before)
     want[2 if bf16 else 1] += calls
     assert _counters() == tuple(want)
+
+
+@pytest.mark.cuda
+def test_kernel_tile_edges_on_card(cuda):
+    """The wgmma form at its tile edges, bit for bit against the plain twin
+    and the popcount K1: every Q in EDGE_Q x N in EDGE_N x t in EDGE_T,
+    from a column on a 16-byte boundary (its second slot all invalid) and
+    from one off it; then a launch whose blocks walk more than one unit
+    (Q = 34048: 178 units of 192 rows)."""
+    h, valid = _edge_store()
+    hs, vs = _t(h).to(cuda), torch.from_numpy(valid).to(cuda)
+    nd = _t(h[3000:3000 + max(EDGE_Q)] ^ np.uint64(0x11)).to(cuda)
+    before = cm.count_below_mma.launches
+    calls = 0
+    for c0 in (768, 901):
+        for q in EDGE_Q:
+            for n in EDGE_N:
+                for t in EDGE_T:
+                    args = (nd[:q], hs[c0:c0 + n], vs[c0:c0 + n], t)
+                    got = cm.count_below_mma(*args)
+                    torch.cuda.synchronize()
+                    calls += 1
+                    what = (c0, q, n, t)
+                    assert torch.equal(got, cm.count_below_mma_plain(*args)), \
+                        what
+                    assert torch.equal(got, cb.count_below(*args)), what
+    many = _t(np.resize(h, 266 * 128) ^ np.uint64(3)).to(cuda)
+    for t in (5, 65):
+        got = cm.count_below_mma(many, hs[:1000], vs[:1000], t)
+        calls += 1
+        assert torch.equal(got, cb.count_below(many, hs[:1000], vs[:1000],
+                                               t)), t
+    assert cm.count_below_mma.launches == before + calls
+
+
+@pytest.mark.cuda
+def test_masked_kernel_tile_edges_on_card(cuda):
+    """The masked wgmma form (K2-mma) with the diagonal at each offset of
+    EDGE_D, at Q in {65, 257} x N in {257, 1025}, t in EDGE_T, at 32-bit
+    and 64-bit ids, bit for bit against the plain twin and the popcount
+    K2."""
+    h, valid = _edge_store()
+    hs, vs = _t(h).to(cuda), torch.from_numpy(valid).to(cuda)
+    before = cm.count_below_mma.masked_launches
+    calls, hits = 0, 0
+    s = 2500
+    for d in EDGE_D:
+        for q in (65, 257):
+            for n in (257, 1025):
+                for base in (0, 1 << 33):
+                    for t in EDGE_T:
+                        args = (hs[s + d:s + d + q], hs[s:s + n],
+                                vs[s:s + n], t)
+                        kw = dict(masked=True, row_base=base + s + d,
+                                  col_base=base + s)
+                        got = cm.count_below_mma(*args, **kw)
+                        torch.cuda.synchronize()
+                        calls += 1
+                        what = (d, q, n, base, t)
+                        assert torch.equal(got, cm.count_below_mma_plain(
+                            *args, **kw)), what
+                        assert torch.equal(got, cb.count_below(*args, **kw)), \
+                            what
+                        hits += int(got.sum()) if t == 5 else 0
+    assert hits > 0
+    assert cm.count_below_mma.masked_launches == before + calls
+
+
+@pytest.mark.cuda
+def test_whole_haystack_chunk_is_exact_on_card(cuda):
+    """So many needles (over 16 units an SM at two chunks) that each unit
+    takes the whole haystack as its chunk, over 2^26 + 2^24 + 12345
+    columns with 1% invalid: at t = 65 every valid column counts, so each
+    row counts them all.  Each lane of a row's quad sums a quarter of
+    them, past the 2^24 that a float sum holds exactly."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    q, n = 8 * sms * 192 + 1, (1 << 26) + (1 << 24) + 12345
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    hay = torch.randint(-2**62, 2**62, (n,), device=cuda, generator=gen)
+    valid = torch.rand(n, device=cuda, generator=gen) > 0.01
+    nd = torch.randint(-2**62, 2**62, (q,), device=cuda, generator=gen)
+    before = cm.count_below_mma.launches
+    got = cm.count_below_mma(nd, hay, valid, 65)
+    assert cm.count_below_mma.launches == before + 1
+    assert torch.equal(got, torch.full_like(got, int(valid.sum())))
