@@ -11,8 +11,8 @@ command line).
 The port's ``Engine`` runs behind it, and ``-about`` reports torch and
 the CUDA device.  Verbs that need a module the port does not have yet
 (the template matcher, the quality score, the grid split, the browser and
-the query server), ``-p.alg`` other than dct and video, and ``-p.tm``
-fail with "not ported yet" and exit code 2.
+the query server), ``-p.alg color``, and ``-p.tm`` fail with "not ported
+yet" and exit code 2.
 
 The device is CUDA unless ``CBIRD_TORCH_DEVICE=cpu`` selects the CPU.
 Run as ``cbird-torch ...`` or ``python -m cbird_tpu_torch.cli.main ...``.
@@ -160,7 +160,7 @@ _KNOWN_VERBS = [
 
 # verbs whose reference implementation needs a module the port does not
 # have yet (the template matcher, the quality score, the grid split, the
-# browser, the query server) or an algorithm other than dct and video
+# browser, the query server) or the color algorithm
 NOT_PORTED = {
     "-browse", "-serve", "-verify", "-merge", "-select-grid",
     "-qualityscore", "-test-image-loader", "-test-image-search",
@@ -267,7 +267,8 @@ class Cli:
             self.search.set_param(a[3:], self._need(args, i, "a value"))
             if self.search.algo not in PORTED_ALGOS:
                 raise NotPortedError(f"{a} {args[i + 1]}: not ported yet "
-                                     f"(only -p.alg dct and video are)")
+                                     "(only -p.alg dct, fdct, orb and video "
+                                     "are)")
             if self.search.templateMatch:
                 raise NotPortedError("-p.tm is not ported yet")
             return i + 2

@@ -1,13 +1,13 @@
 """Engine — composition root wiring Scanner -> Database -> the indexes.
 
-Port of ``cbird_tpu/host/engine.py`` for the dct and video slices.  It
-registers the port's ``DctHashIndex`` and ``DctVideoIndex``.  The JAX
+Port of ``cbird_tpu/host/engine.py`` for the dct, fdct, orb and video
+algorithms.  It registers the port's ``DctHashIndex``,
+``DctFeaturesIndex``, ``CvFeaturesIndex`` and ``DctVideoIndex``.  The JAX
 package narrows ``-i.algos`` (default: all five) to the registered
-indexes without a word; here ``-update`` warns that color, fdct and orb
-are not ported yet, and a query with any of them raises
-``NotPortedError``.  Videos decode on worker threads and hash on the
-engine's device (``host/video.py``), and commit one by one in completion
-order.
+indexes without a word; here ``-update`` warns that color is not ported
+yet, and a query with it raises ``NotPortedError``.  Videos decode on
+worker threads and hash on the engine's device (``host/video.py``), and
+commit one by one in completion order.
 """
 
 from __future__ import annotations
@@ -19,8 +19,11 @@ from typing import Callable
 import numpy as np
 
 from ..device import resolve
+from ..index.cv_features_index import CvFeaturesIndex
+from ..index.dct_features_index import DctFeaturesIndex
 from ..index.dct_hash_index import DctHashIndex
 from ..index.dct_video_index import DctVideoIndex
+from ..ops.orb import extract_features_batch
 from ..params import IndexParams, SearchParams, TYPE_IMAGE, TYPE_VIDEO
 from ..store.database import Database
 from ..store.media import Media, MediaGroup
@@ -32,7 +35,11 @@ from .video import (DECODE_MAX_SIDE, backend_for, grab_frame, process_video,
 
 DCT_MASK = 1 << SearchParams.ALGO_DCT
 VIDEO_MASK = 1 << SearchParams.ALGO_VIDEO
-PORTED_ALGOS = (SearchParams.ALGO_DCT, SearchParams.ALGO_VIDEO)
+COLOR_MASK = 1 << SearchParams.ALGO_COLOR
+FEATURE_ALGOS = (SearchParams.ALGO_DCT_FEATURES, SearchParams.ALGO_CV_FEATURES)
+IMAGE_MASK = (DCT_MASK | (1 << SearchParams.ALGO_DCT_FEATURES)
+              | (1 << SearchParams.ALGO_CV_FEATURES))
+PORTED_ALGOS = (SearchParams.ALGO_DCT, *FEATURE_ALGOS, SearchParams.ALGO_VIDEO)
 
 
 class Engine:
@@ -44,6 +51,8 @@ class Engine:
         self.scanner = Scanner(self.params, device=self.device)
         self._stop_requested = False
         self.db.add_index(DctHashIndex(self.device))
+        self.db.add_index(DctFeaturesIndex(self.device))
+        self.db.add_index(CvFeaturesIndex(self.device))
         self.db.add_index(DctVideoIndex(self.device))
 
     def stop_update(self) -> None:
@@ -59,10 +68,10 @@ class Engine:
                 modified_kept}: the modified files whose old rows a
                 stopped update kept because it did not re-add them"""
         p = self.params
-        if p.algos & ~(DCT_MASK | VIDEO_MASK):
-            warn("color, fdct and orb are not ported yet; indexing dct and "
+        if p.algos & COLOR_MASK:
+            warn("color is not ported yet; indexing dct, fdct, orb and "
                  "video only")
-            p.algos &= DCT_MASK | VIDEO_MASK
+            p.algos &= IMAGE_MASK | VIDEO_MASK
         root = os.path.join(self.db.path(), subdir) if subdir else self.db.path()
 
         self._verify_vdx_files()
@@ -76,7 +85,7 @@ class Engine:
         if p.sync:
             for path, (mid, mtype, algos_present) in self.db.indexed_items().items():
                 needed = p.algos & (VIDEO_MASK if mtype == TYPE_VIDEO
-                                    else DCT_MASK)
+                                    else IMAGE_MASK)
                 if needed & ~algos_present:
                     if mtype == TYPE_IMAGE:
                         scan.modified.append(path)
@@ -199,8 +208,9 @@ class Engine:
 
     # ---- query -----------------------------------------------------------
     def query(self, needle: Media, params: SearchParams) -> MediaGroup:
-        """Single-needle dct or video search incl. on-the-fly hashing of an
-        unindexed needle and mirror variants (reference Engine::query)."""
+        """Single-needle dct, fdct, orb or video search incl. on-the-fly
+        processing of an unindexed needle and mirror variants (reference
+        Engine::query)."""
         if params.algo not in PORTED_ALGOS:
             raise NotPortedError(f"-p.alg {params.algo} is not ported yet")
         if params.templateMatch:
@@ -222,8 +232,10 @@ class Engine:
                     processed = process_video(needle.path, self.params,
                                               device=self.device)
                 else:
+                    algos = (1 << params.algo if params.algo in FEATURE_ALGOS
+                             else DCT_MASK)
                     processed = self.scanner.process_image_file(
-                        needle.path, DCT_MASK,
+                        needle.path, algos,
                         crop=True if params.autoCrop else None)
                 if processed is None:
                     warn(f"cannot process needle: {needle.path}")
@@ -274,13 +286,10 @@ class Engine:
                 grays.append(frame)
         if not grays:
             return []
-        hashes = self.scanner._hasher.hash_images(
-            grays, do_crop=self.params.autocrop or params.autoCrop)
         out: MediaGroup = []
-        for h in hashes:
-            out += self.db.similar_to(
-                Media(needle.path, TYPE_IMAGE, needle.width, needle.height,
-                      needle.md5, int(h), id=needle.id), params)
+        for m in self._needles_from_images(grays, needle, needle.width,
+                                           needle.height, params):
+            out += self.db.similar_to(m, params)
         best: dict = {}
         for m in out:
             if m.path not in best or m.score < best[m.path].score:
@@ -291,7 +300,8 @@ class Engine:
         return matches[:params.maxMatches]
 
     def _mirror_query(self, needle: Media, params: SearchParams) -> MediaGroup:
-        """Re-hash flipped variants of the needle and search each."""
+        """Re-process flipped variants of the needle (dct re-hashes, fdct
+        and orb re-extract features) and search each."""
         d = self.scanner.decode_image(needle.path)
         if d.gray is None:
             return []
@@ -304,11 +314,32 @@ class Engine:
             flips.append(np.ascontiguousarray(np.flipud(np.fliplr(d.gray))))
         if not flips:
             return []
-        hashes = self.scanner._hasher.hash_images(
-            flips, do_crop=self.params.autocrop or params.autoCrop)
         out: MediaGroup = []
-        for h in hashes:
-            m = Media(needle.path, TYPE_IMAGE, d.width, d.height, d.md5,
-                      int(h), id=needle.id)
+        for m in self._needles_from_images(flips, needle, d.width, d.height,
+                                           params):
             out += self.db.similar_to(m, params)
         return out
+
+    def _needles_from_images(self, grays: list[np.ndarray], needle: Media,
+                             width: int, height: int,
+                             params: SearchParams) -> list[Media]:
+        """Image needles of ``params.algo`` from grayscale images (a video
+        needle's frames, the flips of a mirror query): dct hashes, or
+        fdct keypoint hashes, or orb descriptors."""
+        if params.algo in FEATURE_ALGOS:
+            want_desc = params.algo == SearchParams.ALGO_CV_FEATURES
+            needles = []
+            for desc, hashes in extract_features_batch(
+                    grays, self.params.numFeatures,
+                    want_descriptors=want_desc, want_hashes=not want_desc,
+                    device=self.device):
+                m = Media(needle.path, TYPE_IMAGE, width, height, needle.md5,
+                          id=needle.id)
+                m.keyPointDescriptors = desc
+                m.keyPointHashes = hashes
+                needles.append(m)
+            return needles
+        hashes = self.scanner._hasher.hash_images(
+            grays, do_crop=self.params.autocrop or params.autoCrop)
+        return [Media(needle.path, TYPE_IMAGE, width, height, needle.md5,
+                      int(h), id=needle.id) for h in hashes]

@@ -3,10 +3,11 @@
 Port of ``cbird_tpu/host/scanner.py`` with the port's ``DctHasher``: the
 host walks the tree (include/exclude globs, zip members), decodes and
 digests images on worker threads, and the device hashes fixed-size
-batches of grayscale canvases (autocrop + DCT, ``ops/dct_hash.py``).  The
-walk, decode, archive handling and the longest-job-first video queue are
-those of the reference module (videos decode in ``host/video.py``); the
-color and feature descriptors are not ported yet.
+batches of grayscale canvases (autocrop + DCT, ``ops/dct_hash.py``) and,
+for fdct and orb, extracts ORB keypoints, descriptors and keypoint hashes
+(``ops/orb.py``).  The walk, decode, archive handling and the
+longest-job-first video queue are those of the reference module (videos
+decode in ``host/video.py``); the color descriptor is not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import numpy as np
 from PIL import Image, ImageOps
 
 from ..ops.dct_hash import DctHasher
+from ..ops.orb import extract_features_batch
 from ..params import IndexParams, SearchParams, TYPE_IMAGE, TYPE_VIDEO
 from ..store.ioutil import FileId, image_content_md5
 from ..store.media import Media, archive_paths
@@ -43,10 +45,10 @@ ERROR_JPEG_TRUNCATED = "truncated jpeg"
 ERROR_DUP_INODE = "duplicate inode"
 ERROR_ZIP = "zip error"
 
-# image algorithms other than dct: their descriptors are not ported yet
-UNPORTED_IMAGE_ALGOS = ((1 << SearchParams.ALGO_COLOR)
-                        | (1 << SearchParams.ALGO_DCT_FEATURES)
-                        | (1 << SearchParams.ALGO_CV_FEATURES))
+# the color descriptor is not ported yet
+UNPORTED_IMAGE_ALGOS = 1 << SearchParams.ALGO_COLOR
+FEATURE_MASK = ((1 << SearchParams.ALGO_DCT_FEATURES)
+                | (1 << SearchParams.ALGO_CV_FEATURES))
 
 
 class NotPortedError(RuntimeError):
@@ -308,9 +310,9 @@ class Scanner:
         completion order of each device batch."""
         p = self.params
         if p.algos & UNPORTED_IMAGE_ALGOS:
-            raise NotPortedError(
-                "color, fdct and orb descriptors are not ported yet")
+            raise NotPortedError("color descriptors are not ported yet")
         want_dct = bool(p.algos & (1 << SearchParams.ALGO_DCT))
+        want_feat = bool(p.algos & FEATURE_MASK)
         workers = p.indexThreads or min(8, (os.cpu_count() or 1) * 2)
         batch = self._hasher.batch
         done = 0
@@ -334,9 +336,23 @@ class Scanner:
                     with profile_stage(f"dct hash x{len(good)}"):
                         hashes = self._hasher.hash_images(
                             [d.gray for d in good], do_crop=p.autocrop)
-                for i, d in enumerate(good):
-                    yield Media(d.path, TYPE_IMAGE, d.width, d.height, d.md5,
-                                int(hashes[i]) if want_dct else 0)
+                media_batch = [
+                    Media(d.path, TYPE_IMAGE, d.width, d.height, d.md5,
+                          int(hashes[i]) if want_dct else 0)
+                    for i, d in enumerate(good)]
+                if good and want_feat:
+                    orb = SearchParams.ALGO_CV_FEATURES
+                    fdct = SearchParams.ALGO_DCT_FEATURES
+                    with profile_stage(f"orb features x{len(good)}"):
+                        feats = extract_features_batch(
+                            [d.gray for d in good], p.numFeatures,
+                            want_descriptors=bool(p.algos & (1 << orb)),
+                            want_hashes=bool(p.algos & (1 << fdct)),
+                            device=self._hasher.device)
+                    for m, (kp_desc, kp_hashes) in zip(media_batch, feats):
+                        m.keyPointDescriptors = kp_desc
+                        m.keyPointHashes = kp_hashes
+                yield from media_batch
                 done += len(chunk)
                 if progress:
                     progress(done, len(paths))

@@ -61,6 +61,23 @@ def to_packed(hashes: torch.Tensor,
     return split_u64(h), valid.cpu().numpy().astype(bool)
 
 
+class IdRows:
+    """Media id -> its store rows, ascending, from one stable sort of the
+    ids: a feature store holds up to 400 rows an id, and a scan of every
+    id per needle image made ``-similar`` quadratic in the store."""
+
+    def __init__(self, ids: np.ndarray):
+        self._order = np.argsort(ids, kind="stable")
+        self._sorted = ids[self._order]
+
+    def __call__(self, media_id: int) -> np.ndarray:
+        # in the ids' own type: another type would convert the whole array
+        key = self._sorted.dtype.type(media_id)
+        lo = np.searchsorted(self._sorted, key, side="left")
+        hi = np.searchsorted(self._sorted, key, side="right")
+        return self._order[lo:hi]
+
+
 def _bucket(n: int, minimum: int = 1024, chunk: int = 1 << 21) -> int:
     """Device-array bucket size: powers of two for small stores, chunk
     multiples beyond one chunk (power-of-two padding would scan up to 2x
@@ -84,7 +101,7 @@ class PackedHashStore:
         self._hashes = np.zeros(0, dtype=np.uint64)
         self._ids = np.zeros(0, dtype=np.uint32)
         self._dev = None  # (hashes [n_pad] int64, valid [n_pad] bool)
-        self._id_rows = None  # (sorted_ids, rows_sorted) id->row cache
+        self._id_rows: IdRows | None = None
         self._fp: str | None = None
         self.rescanned = 0  # rows the last search_self's verify rescanned
         # the last search_self's pigeonhole tile sizes and run tiles per
@@ -138,6 +155,12 @@ class PackedHashStore:
         return PackedHashStore(self._hashes[keep], self._ids[keep],
                                device=self.device)
 
+    def rows_of(self, media_id: int) -> np.ndarray:
+        """The store rows of ``media_id``, ascending."""
+        if self._id_rows is None:
+            self._id_rows = IdRows(self._ids)
+        return self._id_rows(media_id)
+
     def fingerprint(self) -> str:
         """Content fingerprint of the store (hashes + ids), cached until
         the next add/remove."""
@@ -183,6 +206,12 @@ class PackedHashStore:
                 dist < threshold, ascending by (distance, store row),
                 capped at k
         """
+        return [self._ids_of(hit) for hit in self._search_rows(
+            needle_hashes, threshold, k, needle_batch, min_hits)]
+
+    def _search_rows(self, needle_hashes: np.ndarray, threshold: int,
+                     k: int, needle_batch: int, min_hits: int) -> list:
+        """``search`` with each hit's store row in place of its id."""
         q_total = len(needle_hashes)
         if q_total == 0 or len(self._hashes) == 0:
             return [_EMPTY] * q_total
@@ -256,6 +285,9 @@ class PackedHashStore:
             hot_counts = counts[hot]
         hot = hot[hot < n]  # bucket padding rows are never truly hot
         hot_counts = hot_counts[:len(hot)]
+        # {row: (hit store rows, dists)} until _self_result: the mirror and
+        # the verify go by row (a feature store repeats a media id on every
+        # keypoint row of its image, so an id names no row)
         results: dict = {}
         if len(hot) == 0:
             return self._self_result(results, n, sparse)
@@ -301,20 +333,20 @@ class PackedHashStore:
             # complete source lists are off the table — run the plain
             # two-phase search for every row the triangle never scanned
             cold = np.setdiff1d(np.arange(n, dtype=np.int64), hot)
-            for r, res in zip(cold, self.search(
-                    self._hashes[cold], threshold, k=k, min_hits=2)):
-                ids, ds = res
-                if (len(ids) == 1 and ids[0] == self._ids[r]
+            for r, res in zip(cold, self._search_rows(
+                    self._hashes[cold], threshold, k, needle_batch, 2)):
+                hits, ds = res
+                if (len(hits) == 1 and self._ids[hits[0]] == self._ids[r]
                         and ds[0] == 0):  # lone self-hit is not a duplicate
                     continue
-                if len(ids):
+                if len(hits):
                     results[r] = res
         else:
             mirrored_rows = self._mirror_self_matches(results, hot, k)
         for i in hot:  # restore the caller's k cap after escalation
-            ids, ds = results.get(i, _EMPTY)
-            if len(ids) > k:
-                results[i] = (ids[:k], ds[:k])
+            hits, ds = results.get(i, _EMPTY)
+            if len(hits) > k:
+                results[i] = (hits[:k], ds[:k])
         overflow = [r for r in mirrored_rows
                     if len(results.get(r, _EMPTY)[0]) >= k]
         if overflow:
@@ -325,15 +357,19 @@ class PackedHashStore:
                              needle_batch)
         return self._self_result(results, n, sparse)
 
-    @staticmethod
-    def _self_result(results: dict, n: int, sparse: bool):
-        """Sparse dict -> caller format: drop empty rows (sparse) or expand
-        to the dense N-list."""
+    def _ids_of(self, hit: tuple) -> tuple:
+        """(store rows, dists) -> (ids, dists)."""
+        return self._ids[hit[0]], hit[1]
+
+    def _self_result(self, results: dict, n: int, sparse: bool):
+        """Sparse dict of hit rows -> caller format, with ids: drop empty
+        rows (sparse) or expand to the dense N-list."""
         if sparse:
-            return {r: v for r, v in results.items() if len(v[0])}
+            return {r: self._ids_of(v) for r, v in results.items()
+                    if len(v[0])}
         dense = [_EMPTY] * n
         for r, v in results.items():
-            dense[r] = v
+            dense[r] = self._ids_of(v)
         return dense
 
     def _classic_self_counts(self, hashes_dev, valid_dev, threshold, n_pad,
@@ -352,66 +388,36 @@ class PackedHashStore:
             parts.append(acc)
         return torch.cat(parts).cpu().numpy()[:n]
 
-    def _later_row_hits(self, needle_rows, results):
-        """Per needle row i: #{entries of results[i] whose store row is > i}."""
-        out = np.zeros(len(needle_rows), np.int64)
-        sorted_ids, rows_sorted = self._sorted_id_rows()
-        if not len(sorted_ids):
-            return out.astype(np.int32)
-        src_parts, id_parts = [], []
-        for j, i in enumerate(needle_rows):
-            ids = results.get(i, _EMPTY)[0]
-            if len(ids):
-                src_parts.append(np.full(len(ids), j, np.int64))
-                id_parts.append(ids)
-        if not src_parts:
-            return out.astype(np.int32)
-        src = np.concatenate(src_parts)
-        ids = np.concatenate(id_parts)
-        pos = np.clip(np.searchsorted(sorted_ids, ids),
-                      0, len(sorted_ids) - 1)
-        tgt = rows_sorted[pos]
-        good = (sorted_ids[pos] == ids) & \
-            (tgt > np.asarray(needle_rows, np.int64)[src])
-        np.add.at(out, src[good], 1)
-        return out.astype(np.int32)
-
-    def _sorted_id_rows(self):
-        """(sorted_ids, rows_sorted) for vectorized id->store-row lookups,
-        cached until the next add/remove."""
-        if self._id_rows is None:
-            valid_rows = np.nonzero(self._ids)[0]
-            order = np.argsort(self._ids[valid_rows])
-            self._id_rows = (self._ids[valid_rows][order],
-                             valid_rows[order])
-        return self._id_rows
+    @staticmethod
+    def _later_row_hits(needle_rows, results) -> np.ndarray:
+        """Per needle row i: the hits of i (``results[i]``: their store
+        rows) at a store row > i."""
+        return np.fromiter(
+            (np.count_nonzero(results.get(i, _EMPTY)[0] > i)
+             for i in needle_rows), np.int32, len(needle_rows))
 
     def _mirror_self_matches(self, results, hot, k):
         """Self-search completion: for every hit (i, j) of a row-hot needle
-        i, add the symmetric (j, i) hit to j's results if j was not scanned
-        itself (store ids are unique).  Mirrored lists gain the target's own
+        i (j a store row), add the symmetric (j, i) hit to j's results if
+        j was not scanned itself.  Mirrored lists gain the target's own
         self-match (distance 0) and are ordered like a scan: ascending
         distance, ties by store row.
         @return list of target rows that received mirrored results"""
-        src_parts, id_parts, d_parts = [], [], []
+        src_parts, row_parts, d_parts = [], [], []
         for i in hot:
-            ids, dists = results.get(i, _EMPTY)
-            if len(ids):
-                src_parts.append(np.full(len(ids), i, np.int64))
-                id_parts.append(ids)
+            rows, dists = results.get(i, _EMPTY)
+            if len(rows):
+                src_parts.append(np.full(len(rows), i, np.int64))
+                row_parts.append(rows)
                 d_parts.append(dists)
         if not src_parts:
             return []
         src = np.concatenate(src_parts)
-        hit_ids = np.concatenate(id_parts)
+        tgt = np.concatenate(row_parts)
         d = np.concatenate(d_parts)
-        sorted_ids, rows_sorted = self._sorted_id_rows()
-        pos = np.clip(np.searchsorted(sorted_ids, hit_ids),
-                      0, max(len(sorted_ids) - 1, 0))
-        tgt = rows_sorted[pos]
         hot_mask = np.zeros(len(self._ids), bool)
         hot_mask[hot] = True
-        keep = ((sorted_ids[pos] == hit_ids) & (tgt != src) & ~hot_mask[tgt])
+        keep = (tgt != src) & ~hot_mask[tgt]
         sel = np.nonzero(keep)[0]
         if not len(sel):
             return []
@@ -426,16 +432,16 @@ class PackedHashStore:
             ds = np.r_[np.int32(0), d[s0:s1]]       # own self-match first
             rows = np.r_[np.int64(r), src[s0:s1]]
             o = np.lexsort((rows, ds))[:k]
-            results[r] = (self._ids[rows[o]].astype(np.uint32),
-                          ds[o].astype(np.int32))
+            results[r] = (rows[o], ds[o].astype(np.int32))
             filled.append(r)
         return filled
 
     def _topk_phase(self, needles: torch.Tensor, hot, results, hashes_dev,
                     valid_dev, threshold, k, needle_batch, rescan=False):
         """Top-k for the needles (rows of ``needles``) that passed the
-        count gate; fills and returns ``results`` with ids/dists below the
-        threshold, ascending by (distance, store row) — the kernel's order."""
+        count gate; fills and returns ``results`` with the store rows and
+        dists of hits below the threshold, ascending by (distance, store
+        row) — the kernel's order."""
         hot_dev = torch.as_tensor(np.asarray(hot, np.int64), device=self.device)
         for s in range(0, len(hot), needle_batch):
             sel = hot[s:s + needle_batch]
@@ -447,10 +453,10 @@ class PackedHashStore:
             r_idx, c_idx = np.nonzero(hit)
             if len(r_idx) == 0:
                 continue
-            ids_flat = self._ids[i[r_idx, c_idx]]
+            rows_flat = i[r_idx, c_idx].astype(np.int64)
             d_flat = d[r_idx, c_idx]
             uniq, starts = np.unique(r_idx, return_index=True)
             bounds = np.append(starts[1:], len(r_idx))
             for u, s0, s1 in zip(uniq, starts, bounds):
-                results[sel[u]] = (ids_flat[s0:s1], d_flat[s0:s1])
+                results[sel[u]] = (rows_flat[s0:s1], d_flat[s0:s1])
         return results

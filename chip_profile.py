@@ -21,6 +21,16 @@ limit come first.
                         all-pairs self-search
   video (b) similar-to  the same collection with its black frames: find
                         of the unstored 16384-frame needle video
+  feat 1024             extract_features_batch (ORB, 400 features, 12
+                        levels, descriptors and keypoint hashes) over
+                        chip_smoke's 1024 textured images
+  fdct similar 2^22     chip_smoke's fdct store (2^22 keypoint-hash rows):
+                        find_all at t=5
+  fdct similar-to 16    the same store: find_batch of 16 needle images
+  orb similar-to 16     chip_smoke's orb store (2^20 descriptors):
+                        find_batch of 16 needle images (K5)
+  orb similar 2^18      the same store: find_batch of the images of its
+                        first 2^18 rows
 
 Exits non-zero when no CUDA device is visible.
 """
@@ -73,6 +83,56 @@ def trace(torch, fn, reps: int) -> dict:
             "idle_share": 1 - busy / wall,
             "top_kernels_ms": [[k[:60], round(ms, 4)] for k, ms in top],
             "top_host_cum_ms": [[k, round(ms, 2)] for k, ms in host]}
+
+
+def feature_configs(torch, s, want, show):
+    """The fdct and orb configurations, on chip_smoke's data."""
+    from cbird_tpu_torch.ops import orb
+    from cbird_tpu_torch.params import SearchParams
+    from cbird_tpu_torch.store.media import Media
+    sp = SearchParams()
+    if want("feat 1024"):
+        imgs = s.feat_images(chip_smoke.FEAT_IMAGES,
+                             np.random.default_rng(chip_smoke.SEED + 20))
+        show("feat 1024", trace(
+            torch, lambda: orb.extract_features_batch(imgs, device=s.dev), 2))
+        del imgs
+    kp = chip_smoke.KP
+    if want("fdct similar 2^22", "fdct similar-to 16"):
+        idx, hashes, _, groups = s.fdct_index(
+            np.random.default_rng(chip_smoke.SEED + 21))
+        if want("fdct similar 2^22"):
+            show("fdct similar 2^22", trace(torch, lambda: idx.find_all(sp),
+                                            2))
+        needles = []
+        for src, _ in groups[:chip_smoke.FEAT_NEEDLES]:
+            m = Media(f"/needle/{src}.png")
+            m.keyPointHashes = hashes[(src - 1) * kp:src * kp]
+            needles.append(m)
+        if want("fdct similar-to 16"):
+            show("fdct similar-to 16", trace(
+                torch, lambda: idx.find_batch(needles, sp), 3))
+        del idx, hashes
+        torch.cuda.empty_cache()
+    if want("orb similar-to 16", "orb similar 2^18"):
+        idx, desc, groups = s.orb_index(
+            np.random.default_rng(chip_smoke.SEED + 22))
+        needles = []
+        for src, _ in groups[:chip_smoke.FEAT_NEEDLES]:
+            m = Media(f"/needle/{src}.png")
+            m.keyPointDescriptors = desc[(src - 1) * kp:src * kp].view(
+                np.uint8).reshape(kp, 32)
+            needles.append(m)
+        if want("orb similar-to 16"):
+            show("orb similar-to 16", trace(
+                torch, lambda: idx.find_batch(needles, sp), 3))
+        first = [Media(id=i) for i in
+                 range(1, chip_smoke.ORB_SIMILAR_ROWS // kp + 1)]
+        if want("orb similar 2^18"):
+            show("orb similar 2^18", trace(
+                torch, lambda: idx.find_batch(first, sp), 1))
+        del idx, desc
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -128,6 +188,7 @@ def main() -> int:
         show("hash 1024", trace(
             torch, lambda: hasher.hash_images(images, do_crop=True), 2))
         del hasher, images
+    feature_configs(torch, s, want, show)
     if not want("video (a) similar 4096x512",
                 "video (b) similar-to 16384 frames"):
         return 0

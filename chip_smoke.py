@@ -51,8 +51,38 @@ Phases, each printed on its own line (pass/fail, numbers, wall ms, card):
            -p.alg video -similar -json, then -similar-to a copy and a frame
   cli      60 base images x 4 variants as files: cbird-torch -create
            -update -similar -json, then -similar-to
+  feat     extract_features_batch (ORB at 400 features, 12 levels;
+           descriptors and keypoint hashes) over 1024 seeded textured
+           images with long sides of 300-1200 px: images/s, and the device
+           time of the pyramid and the ROI hashes beside the host's
+           prescale and pack; 8 of them also through the CPU path:
+           keypoint agreement (>= 99%), descriptor bits differing, ROI
+           hashes differing (<= 1 bit; ROIs in flat regions, whose hash is
+           float noise on any device, counted apart)
+  fdct     a DctFeaturesIndex of 2^22 keypoint-hash rows (10486 images x
+           400) with 64 planted crop groups: -similar (find_all, t=5,
+           through the pigeonhole path, K3 and K4) finds them; -similar-to
+           of 16 needle images (6400 hashes: the K1-mma gate, K4) gives the
+           same lists; 256 sampled rows' candidates against numpy
+  orb      a CvFeaturesIndex of 2^20 descriptors (2622 images x 400) with 64
+           planted groups: -similar-to of 16 needle images and -similar
+           over the images of the first 2^18 rows (K5, bounded at
+           cvThresh) find them; 64 sampled needle images' K5 results and
+           votes against the plain twin's
+  fcli     24 textured sources x (source, crop, 0.75 scale) as files:
+           cbird-torch -create -update, then -p.alg fdct and orb -similar
+           -json and -similar-to; the groups equal the same CLI run with
+           CBIRD_TORCH_DEVICE=cpu in a subprocess (its own -update)
 
-The main path is query, self, ph, video, vcli and cli: the launch
+The kernels phase also holds K5 (the 256-bit k-nearest search) against
+its plain twin at Q in K5_Q x T in K5_T (ties, an all-invalid range, k in
+{1, 10}, bound 25 and none) and times it at Q=6400 x T=2^20, k=10, bound
+25 and unbounded, beside two bounds: bound_ms, that of its own form (8
+POPC a pair), and tc_bound_ms, the function's (its +-1 product over
+K = 256 on the tensor cores, as K4's tc_bound_ms).
+
+The main path is query, self, ph, video, vcli, cli, feat, fdct, orb and
+fcli: the launch
 counters are zeroed just before each of them and read just after; every
 kernel must have run there, but for the bf16 form of K1-mma and the
 popcount K1 and K2 (the yardstick of the tensor-core forms), which only
@@ -105,7 +135,8 @@ POPC_PER_CLK = 16  # 32-bit POPC per clock per SM (sm_90)
 ALU_PER_CLK, INT32_PER_CLK = 64, 128
 TC_INT8_OPS_PER_S = 1979e12
 TC_BF16_OPS_PER_S = 989e12
-KERNELS = ("count_below", "count_below_mma", "hamming_topk", "band_count")
+KERNELS = ("count_below", "count_below_mma", "hamming_topk", "band_count",
+           "hamming_lanes_topk")
 # K1-mma: checked thresholds; timed shapes (Q, N, t): the K1 variants'
 # experiments (epilogue and i16 at t=5, the bf16 sweep at t=6), the
 # triangle's tile at 1M rows, the 1024-needle gate (K1's row)
@@ -145,6 +176,21 @@ K3_CHECKS = ((1 << 20, 2048, (T, 1)), (1 << 20, 1024, (T,)),
 SELF_ROWS = 1_000_000
 PH_ROWS = (2_000_000, 10_000_000)
 PH_SAMPLE = 128
+# the feature phases at the published widths (400 features an image, 12
+# levels, 256-bit descriptors, 64-bit keypoint hashes): feat's images (8
+# of them also on the CPU); the fdct store (2^22 keypoint-hash rows) and
+# the orb store (2^20 descriptors), each with FEAT_GROUPS planted crop
+# groups and FEAT_NEEDLES needle images; orb -similar over the images of
+# the first ORB_SIMILAR_ROWS rows; fcli's sources
+FEAT_IMAGES, FEAT_CPU, KP = 1024, 8, 400
+FDCT_IMAGES, ORB_IMAGES = 10486, 2622
+FEAT_GROUPS, FEAT_NEEDLES = 64, 16
+ORB_SIMILAR_ROWS = 1 << 18
+FCLI_SOURCES = 24
+# K5: checked needle and row counts, the timed needle count
+K5_Q = (1, 63, 65, 513)
+K5_T = (1, 255, 257, 16385, 1 << 20)
+K5_TIMED_Q = 6400
 # chip_bounds.py's probe library (the SM clock for the bounds)
 PROBE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                          "probes")
@@ -179,6 +225,7 @@ class Smoke:
         from cbird_tpu_torch.ops import band_count as bc
         from cbird_tpu_torch.ops import count_below as cb
         from cbird_tpu_torch.ops import count_below_mma as cm
+        from cbird_tpu_torch.ops import hamming_lanes as hl
         from cbird_tpu_torch.ops import hamming_topk as tk
         # kernel -> (wrapper, attribute of its launch counter)
         self.counters = {"K1": (cb.count_below, "launches"),
@@ -188,7 +235,8 @@ class Smoke:
                          "K1-mma-bf16": (cm.count_below_mma, "bf16_launches"),
                          "K3": (bc.band_counts, "launches"),
                          "K3-run": (bc.run_tiles, "launches"),
-                         "K4": (tk.hamming_topk, "launches")}
+                         "K4": (tk.hamming_topk, "launches"),
+                         "K5": (hl.hamming_lanes_topk, "launches")}
 
     def launches(self) -> dict[str, int]:
         return {k: getattr(f, a) for k, (f, a) in self.counters.items()}
@@ -438,6 +486,7 @@ class Smoke:
                          "K4 Q=1024 N=2^20 k=64 bound=5")
         out.update(self.k3_kernels())
         out.update(self.mma_kernels())
+        out.update(self.k5_kernels())
         self.sm_clock()
         self.finish_bounds()
         out["sm_clock64_mhz"] = self.clock64_mhz
@@ -1621,6 +1670,541 @@ class Smoke:
                 "similar_to_matches": len(hit[0]["matches"])}
 
 
+    # ---- the feature algorithms (fdct, orb) -------------------------------
+    def k5_kernels(self):
+        """K5 against its plain twin at K5_Q x K5_T (an all-invalid range,
+        planted ties, k in {1, 10}, bound 25 and none), then timed at
+        Q=6400 x T=2^20, k=10, bound 25 and unbounded, beside its bound
+        and the +-1 int8 product (the product alone: no library call
+        computes a Hamming k-nearest)."""
+        torch = self.torch
+        from cbird_tpu_torch.ops import hamming_lanes as hl
+        rng = np.random.default_rng(SEED + 10)
+        tmax = max(K5_T)
+        hay = torch.from_numpy(rng.integers(
+            -2**63, 2**63, size=(tmax, 4), dtype=np.int64)).to(self.dev)
+        hay[1000:1400] = hay[7]  # ties: 401 rows at one distance
+        hay[3000:3005, 0] = hay[7, 0] ^ 1
+        valid = torch.from_numpy(rng.random(tmax) > 0.01).to(self.dev)
+        valid[5000:9000] = False  # an all-invalid range
+        pick = torch.from_numpy(rng.integers(0, tmax, max(K5_Q))).to(self.dev)
+        needles = hay[pick].clone()
+        needles[:, 1] ^= 5
+        needles[0] = hay[7]
+        err, checks = 0.0, 0
+        for t in K5_T:
+            for q in K5_Q:
+                nd = needles[:q].contiguous()
+                for k in (1, 10):
+                    for bound in (25, hl.BINS):
+                        got = hl.hamming_lanes_topk(nd, hay[:t], valid[:t],
+                                                    k, bound)
+                        want = hl.hamming_lanes_topk_plain(
+                            nd, hay[:t], valid[:t], k, bound)
+                        torch.cuda.synchronize()
+                        what = f"K5 q={q} t={t} k={k} bound={bound}"
+                        err = max(err, self.same(got[0], want[0], what),
+                                  self.same(got[1], want[1], what))
+                        checks += 1
+        q, k = K5_TIMED_Q, 10
+        nd = hay[torch.from_numpy(rng.integers(0, tmax, q)).to(self.dev)]
+        nd[:, 2] ^= 0x10101
+        nd = nd.contiguous()
+        self.sm_clock()
+        rows = {}
+        for name, bound in (("bound25", 25), ("unbounded", hl.BINS)):
+            got = hl.hamming_lanes_topk(nd, hay, valid, k, bound)
+            want = hl.hamming_lanes_topk_plain(nd, hay, valid, k, bound)
+            err = max(err, self.same(got[0], want[0], f"K5 timed {name}"),
+                      self.same(got[1], want[1], f"K5 timed {name}"))
+            row = rows[name] = {
+                "ms": self.event_ms(
+                    lambda: hl.hamming_lanes_topk(nd, hay, valid, k, bound),
+                    10),
+                "plain_ms": self.event_ms(
+                    lambda: hl.hamming_lanes_topk_plain(nd, hay, valid, k,
+                                                        bound), 1)}
+            self.bound(row, "bound_ms", "bound_by", **self.k5_work(q, tmax, k))
+            self.bound(row, "tc_bound_ms", **self.k5_work(q, tmax, k, True))
+        # yardstick of a tensor-core form: the +-1 int8 product of the
+        # needles and 2^16 rows, times 16 (the whole product's [Q, T] int32
+        # output would not fit the card)
+        pm = (torch.randint(0, 2, (q, 256), device=self.dev) * 2 - 1).to(
+            torch.int8)
+        hm = (torch.randint(0, 2, (256, 1 << 16), device=self.dev) * 2
+              - 1).to(torch.int8)
+        int_mm = 16 * self.event_ms(lambda: torch._int_mm(pm, hm), 5)
+        del pm, hm
+        row = rows["bound25"]
+        self.kernels["K5"].update(
+            max_abs_err=err, ms=row["ms"], plain_ms=row["plain_ms"],
+            library_ms=None, int_mm_yardstick_ms=int_mm, ms_at=rows)
+        self.bound(self.kernels["K5"], "bound_ms", "bound_by",
+                   **self.k5_work(q, tmax, k))
+        self.bound(self.kernels["K5"], "tc_bound_ms",
+                   **self.k5_work(q, tmax, k, True))
+        return {"K5_checks": checks, "K5_max_abs_err": err,
+                "K5_ms_at": rows,
+                "K5_shapes": f"Q={q} T=2^20 k=10, bound 25 (the kernels "
+                             f"line) and unbounded",
+                "int_mm_6400x256x2^20_ms": round(int_mm, 4)}
+
+    @staticmethod
+    def k5_work(q, t, k, tc=False):
+        """Four __popcll (8 POPC) a pair, the bound of the kernel's own
+        form; ``tc``: the function's bound, its +-1 product over K = 256
+        (512 tensor operations a pair at the int8 rate) and a compare a
+        pair, as mma_work counts K1-mma's.  32 bytes and a validity byte a
+        row, 32 bytes a needle, k distances and rows written."""
+        nbytes = 33 * t + 32 * q + 8 * q * k
+        if tc:
+            return dict(nbytes=nbytes, alu=q * t, int_ops=q * t,
+                        tc_ops=512 * q * t, tc_rate=TC_INT8_OPS_PER_S)
+        return dict(nbytes=nbytes, popc=8 * q * t)
+
+    def feat_images(self, count: int, rng):
+        """Seeded textured images, long sides 300-1200 px."""
+        out = []
+        for _ in range(count):
+            long_side = int(rng.integers(300, 1201))
+            short = int(long_side * rng.uniform(0.6, 1.0))
+            h, w = (long_side, short) if rng.random() < 0.5 else \
+                (short, long_side)
+            out.append(textured(rng, h, w))
+        return out
+
+    def feat_phase(self):
+        """The ingest half: extract_features_batch on the card (images/s),
+        its steps timed apart, and 8 images against the CPU path."""
+        torch = self.torch
+        from cbird_tpu_torch.ops import orb
+        rng = np.random.default_rng(SEED + 20)
+        imgs = self.feat_images(FEAT_IMAGES, rng)
+        chunk = 64  # extract_features_batch's chunk on a card
+        orb.extract_features_batch(imgs[:chunk], device=self.dev)  # warm-up
+        wall, feats = self.timed(
+            lambda: orb.extract_features_batch(imgs, device=self.dev))
+        out = {"images": len(imgs), "images_per_s": round(
+            len(imgs) / wall * 1e3, 1),
+               "keypoints_per_image": round(float(np.mean(
+                   [len(d) for d, _ in feats])), 1),
+               "hashes_per_image": round(float(np.mean(
+                   [len(h) for _, h in feats])), 1)}
+        # the steps, apart: the host's prescale and pack (and the copy to
+        # the card), the pyramid and the ROI hashes (CUDA events)
+        host_ms = pyr_ms = roi_ms = 0.0
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        for s0 in range(0, len(imgs), chunk):
+            t0 = time.perf_counter()
+            canvas, sizes = orb.pack_chunk(
+                [orb._prescale(g) for g in imgs[s0:s0 + chunk]], self.dev)
+            host_ms += (time.perf_counter() - t0) * 1e3
+            ev[0].record()
+            res = orb.orb_pyramid(canvas, sizes, KP)
+            ev[1].record()
+            boxes, ok = orb.roi_boxes(res["xs"], res["ys"], res["size"],
+                                      res["valid"], sizes[:, 0], sizes[:, 1])
+            orb.roi_hashes(canvas, boxes, ok)
+            ev[2].record()
+            torch.cuda.synchronize()
+            pyr_ms += ev[0].elapsed_time(ev[1])
+            roi_ms += ev[1].elapsed_time(ev[2])
+        out.update(host_prescale_pack_ms=round(host_ms, 1),
+                   pyramid_device_ms=round(pyr_ms, 1),
+                   roi_hash_device_ms=round(roi_ms, 1))
+        out.update(self.feat_cpu_check(imgs[:FEAT_CPU]))
+        return out
+
+    def feat_cpu_check(self, imgs):
+        """The same images on the card and through the CPU path: keypoint
+        agreement (xs, ys and valid equal a slot), descriptor and ROI-hash
+        bits differing on the agreeing keypoints.  A ROI in a flat region
+        (its 64 coefficients below 1e-6 of its DC term in float64) hashes
+        float noise on any device and is counted apart."""
+        from cbird_tpu_torch.ops import orb
+        pre = [orb._prescale(g) for g in imgs]
+        res = {}
+        for dev in (self.dev, "cpu"):
+            canvas, sizes = orb.pack_chunk(pre, dev)
+            r = orb.features_chunk(canvas, sizes, KP)
+            res[str(dev)] = {k: v.cpu().numpy() for k, v in r.items()}
+        g, c = res[str(self.dev)], res["cpu"]
+        same = (g["xs"] == c["xs"]) & (g["ys"] == c["ys"]) & \
+            (g["valid"] == c["valid"])
+        live = g["valid"] | c["valid"]
+        agree = float((same & live).sum() / max(live.sum(), 1))
+        kp = same & g["valid"]
+        dbits = np.bitwise_count(g["desc"] ^ c["desc"]).sum(axis=2)[kp]
+        both = same & g["hash_ok"] & c["hash_ok"]
+        hbits = np.bitwise_count(g["hash"] ^ c["hash"])
+        flat = self.flat_rois(pre, g, both)
+        bad = both & ~flat
+        out = {"cpu_images": len(imgs), "keypoint_agreement": round(agree, 5),
+               "descriptors_compared": int(kp.sum()),
+               "descriptors_with_flip": int(np.count_nonzero(dbits)),
+               "descriptor_bits_differing": int(dbits.sum()),
+               "roi_hashes_compared": int(bad.sum()),
+               "roi_hashes_with_flip": int(np.count_nonzero(hbits[bad])),
+               "roi_hash_max_flip_bits": int(hbits[bad].max(initial=0)),
+               "flat_rois": int((both & flat).sum()),
+               "flat_roi_hashes_differing": int(np.count_nonzero(
+                   hbits[both & flat]))}
+        if agree < 0.99 or out["roi_hash_max_flip_bits"] > 1:
+            raise AssertionError(f"card against CPU: {out}")
+        return out
+
+    def flat_rois(self, pre, res, mask):
+        """[B, K] bool: the ROIs under ``mask`` whose 64 hash coefficients
+        are all below 1e-6 of the DC term (float64, on the CPU)."""
+        torch = self.torch
+        from cbird_tpu_torch.ops import dct_hash as dh
+        from cbird_tpu_torch.ops import orb
+        out = np.zeros(mask.shape, bool)
+        for n, img in enumerate(pre):
+            h, w = img.shape
+            t = lambda k: torch.from_numpy(res[k][n:n + 1])
+            boxes, _ = orb.roi_boxes(t("xs"), t("ys"), t("size"), t("valid"),
+                                     torch.tensor([h]), torch.tensor([w]))
+            sel = np.nonzero(mask[n])[0]
+            if not len(sel):
+                continue
+            bx = boxes[0][torch.from_numpy(sel)]
+            top, bottom, left, right = bx.unbind(1)
+            rb = dh._blur_radius((bottom - top) * (right - left))
+            mh = dh._axis_map(top, bottom - top, rb, 32, h).double()
+            mw = dh._axis_map(left, right - left, rb, 32, w).double()
+            f = mh @ torch.from_numpy(np.array(img)).double() \
+                @ mw.transpose(1, 2)
+            d = torch.as_tensor(dh._D32).double()
+            f = d @ f @ d.T
+            v = f[:, :9, :9].reshape(-1, 81)[:, torch.as_tensor(dh._ZZ64)]
+            out[n, sel] = (v.abs().max(dim=1).values
+                           < 1e-6 * f[:, 0, 0].abs()).numpy()
+        return out
+
+    @staticmethod
+    def feature_groups(images: int, rng):
+        """FEAT_GROUPS planted crop groups: (source id, [copy ids])."""
+        pick = rng.choice(np.arange(1, images + 1), size=3 * FEAT_GROUPS,
+                          replace=False).reshape(FEAT_GROUPS, 3)
+        return [(int(a), [int(b), int(c)]) for a, b, c in pick]
+
+    def fdct_index(self, rng):
+        """A DctFeaturesIndex of FDCT_IMAGES x KP random keypoint hashes
+        (2^22 rows): in each planted group, each copy's first 150 hashes
+        are 150 of its source's with 0-2 bits flipped.
+        @return (index, hashes, ids, groups)"""
+        from cbird_tpu_torch.index.dct_features_index import DctFeaturesIndex
+        from cbird_tpu_torch.ops.hamming import PackedHashStore
+        hashes = rng.integers(1, 2**64, size=FDCT_IMAGES * KP,
+                              dtype=np.uint64)
+        ids = np.repeat(np.arange(1, FDCT_IMAGES + 1, dtype=np.uint32), KP)
+        groups = self.feature_groups(FDCT_IMAGES, rng)
+        for src, copies in groups:
+            for c in copies:
+                take = (src - 1) * KP + rng.choice(KP, 150, replace=False)
+                rows = (c - 1) * KP + np.arange(150)
+                hashes[rows] = self.flip_bits(hashes[take], rng.integers(
+                    0, 3, 150), rng)
+        idx = DctFeaturesIndex(self.dev)
+        idx._store = PackedHashStore(hashes, ids, device=self.dev)
+        idx._loaded = True
+        return idx, hashes, ids, groups
+
+    @staticmethod
+    def check_feature_groups(votes: dict, groups, what: str):
+        """Every planted copy in its source's list and the source in each
+        copy's (``votes``: id -> set of matched ids)."""
+        for src, copies in groups:
+            for c in copies:
+                if c not in votes.get(src, ()) or src not in votes.get(c, ()):
+                    raise AssertionError(f"{what}: planted {src}-{c} missed")
+
+    def fdct_phase(self):
+        torch = self.torch
+        from cbird_tpu_torch.ops import band_count as bc
+        from cbird_tpu_torch.ops import hamming_topk as tk
+        from cbird_tpu_torch.params import SearchParams
+        from cbird_tpu_torch.store.media import Media
+        rng = np.random.default_rng(SEED + 21)
+        idx, hashes, ids, groups = self.fdct_index(rng)
+        store = idx._store
+        store._device_arrays()
+        sp = SearchParams()
+        k3, k4 = bc.band_counts.launches, tk.hamming_topk.launches
+        wall, (out_ids, lists) = self.timed(lambda: idx.find_all(sp))
+        if store.pigeonhole is None or bc.band_counts.launches == k3 \
+                or tk.hamming_topk.launches == k4:
+            raise AssertionError("find_all did not take the pigeonhole "
+                                 "path, K3 and K4")
+        votes = {int(i): set(l[0].tolist()) for i, l in zip(out_ids, lists)}
+        self.check_feature_groups(votes, groups, "fdct -similar")
+        out = {"rows": len(hashes), "images": FDCT_IMAGES,
+               "similar_wall_ms": round(wall, 1),
+               "images_with_matches": len(votes),
+               "pigeonhole_s": store.pigeonhole["s"]}
+        # -similar-to: 16 unstored needle images, the sources' hashes
+        needles = []
+        for src, _ in groups[:FEAT_NEEDLES]:
+            m = Media(f"/needle/{src}.png")
+            m.keyPointHashes = hashes[(src - 1) * KP:src * KP]
+            needles.append(m)
+        wall, res = self.timed(lambda: idx.find_batch(needles, sp))
+        for (src, copies), ms in zip(groups, res):
+            got = {m.mediaId for m in ms}
+            if got != votes[src]:
+                raise AssertionError(f"fdct -similar-to of {src}: {got} "
+                                     f"against -similar's {votes[src]}")
+        out["similar_to_wall_ms"] = round(wall, 1)
+        out["similar_to_hashes"] = FEAT_NEEDLES * KP
+        # candidate lists of 256 sampled rows against numpy
+        with self.uncounted():
+            planted = np.concatenate([np.arange((c - 1) * KP, (c - 1) * KP
+                                                + 150)
+                                      for _, cs in groups for c in cs])
+            rows = np.r_[rng.choice(planted, 128, replace=False),
+                         rng.choice(len(hashes), 128, replace=False)]
+            res = store.search(hashes[rows], T, k=30)
+            hits = 0
+            for r, (got_ids, got_d) in zip(rows, res):
+                d = np.bitwise_count(hashes ^ hashes[r]).astype(np.int32)
+                near = np.nonzero(d < T)[0]
+                o = np.lexsort((near, d[near]))[:30]
+                if not (np.array_equal(got_ids, ids[near[o]])
+                        and np.array_equal(got_d, d[near[o]])):
+                    raise AssertionError(f"fdct row {r}: candidates differ "
+                                         f"from numpy")
+                hits += len(o)
+        out.update(rows_checked=len(rows), checked_candidates=hits)
+        del idx, store
+        torch.cuda.empty_cache()
+        return out
+
+    def orb_index(self, rng):
+        """A CvFeaturesIndex of ORB_IMAGES x KP random descriptors (2^20
+        rows): in each planted group, each copy's first 200 descriptors are
+        200 of its source's with 0-20 of 256 bits flipped.
+        @return (index, descriptors [T, 8] uint32, groups)"""
+        from cbird_tpu_torch.index.cv_features_index import CvFeaturesIndex
+        desc = rng.integers(0, 2**32, size=(ORB_IMAGES * KP, 8),
+                            dtype=np.uint32)
+        ids = np.repeat(np.arange(1, ORB_IMAGES + 1, dtype=np.uint32), KP)
+        groups = self.feature_groups(ORB_IMAGES, rng)
+        for src, copies in groups:
+            for c in copies:
+                take = (src - 1) * KP + rng.choice(KP, 200, replace=False)
+                rows = (c - 1) * KP + np.arange(200)
+                bits = rng.integers(0, 21, 200)
+                keys = rng.random((200, 256)).argsort(axis=1)
+                flip = np.zeros((200, 256), bool)
+                for b in range(20):
+                    on = bits > b
+                    flip[np.nonzero(on)[0], keys[on, b]] = True
+                desc[rows] = desc[take] ^ np.packbits(
+                    flip, axis=1, bitorder="little").view(np.uint32)
+        idx = CvFeaturesIndex(self.dev)
+        idx._store.add(desc, ids)
+        idx._loaded = True
+        return idx, desc, groups
+
+    def orb_phase(self):
+        torch = self.torch
+        from cbird_tpu_torch.index.cv_features_index import (
+            CvFeaturesIndex, KNN)
+        from cbird_tpu_torch.ops import hamming_lanes as hl
+        from cbird_tpu_torch.params import SearchParams
+        from cbird_tpu_torch.store.media import Media
+        rng = np.random.default_rng(SEED + 22)
+        idx, desc, groups = self.orb_index(rng)
+        idx._store.device_arrays()
+        sp = SearchParams()
+        out = {"rows": len(desc), "images": ORB_IMAGES}
+        # -similar-to: 16 unstored needle images, the sources' descriptors
+        needles = []
+        for src, _ in groups[:FEAT_NEEDLES]:
+            m = Media(f"/needle/{src}.png")
+            m.keyPointDescriptors = desc[(src - 1) * KP:src * KP].view(
+                np.uint8).reshape(KP, 32)
+            needles.append(m)
+        k5 = hl.hamming_lanes_topk.launches
+        wall, res = self.timed(lambda: idx.find_batch(needles, sp))
+        if hl.hamming_lanes_topk.launches == k5:
+            raise AssertionError("K5 did not run for -similar-to")
+        for (src, copies), ms in zip(groups, res):
+            got = {m.mediaId for m in ms}
+            if not {src, *copies} <= got:
+                raise AssertionError(f"orb -similar-to of {src}: {got}")
+        out.update(similar_to_wall_ms=round(wall, 1),
+                   similar_to_descriptors=FEAT_NEEDLES * KP)
+        # -similar over the images of the first ORB_SIMILAR_ROWS rows: every
+        # stored descriptor of theirs a needle
+        first = range(1, ORB_SIMILAR_ROWS // KP + 1)
+        wall, res = self.timed(lambda: idx.find_batch(
+            [Media(id=i) for i in first], sp))
+        votes = {i: {m.mediaId for m in ms} for i, ms in zip(first, res)}
+        inside = [(s, c) for s, c in groups if s in votes]
+        for src, copies in inside:
+            if not set(copies) <= votes[src]:
+                raise AssertionError(f"orb -similar: planted {src} missed")
+        out.update(similar_needles=len(first) * KP,
+                   similar_wall_ms=round(wall, 1),
+                   similar_groups_checked=len(inside))
+        # votes against the plain path's on 64 sampled needle images
+        with self.uncounted():
+            hd, vd = idx._store.device_arrays()
+            sample = rng.choice(np.arange(1, ORB_IMAGES + 1), 64,
+                                replace=False)
+            for i in sample:
+                nd = torch.from_numpy(desc[(i - 1) * KP:i * KP].view(
+                    np.int64).copy()).to(self.dev)
+                got = hl.hamming_lanes_topk(nd, hd, vd, KNN, sp.cvThresh)
+                want = hl.hamming_lanes_topk_plain(nd, hd, vd, KNN,
+                                                   sp.cvThresh)
+                self.same(got[0], want[0], "K5 votes")
+                self.same(got[1], want[1], "K5 votes")
+                ids = np.r_[idx._store.ids, np.uint32(0)]
+                vote = [CvFeaturesIndex._vote(
+                    r[0].cpu().numpy(), ids[r[1].cpu().numpy()], sp)
+                    for r in (got, want)]
+                if [(m.mediaId, m.score) for m in vote[0]] != \
+                        [(m.mediaId, m.score) for m in vote[1]]:
+                    raise AssertionError(f"orb votes of {i} differ")
+        out["vote_needles_checked"] = len(sample)
+        del idx
+        torch.cuda.empty_cache()
+        return out
+
+    def fcli_phase(self):
+        """The CLI with -p.alg fdct and orb over FCLI_SOURCES textured
+        sources, each with a crop and a 0.75 scale: -create -update
+        -similar -similar-to on the card; the groups against the same CLI
+        run with CBIRD_TORCH_DEVICE=cpu in a subprocess."""
+        import shutil
+        from PIL import Image
+        from cbird_tpu_torch.cli.main import main
+        from cbird_tpu_torch.ops import hamming_lanes as hl
+        rng = np.random.default_rng(SEED + 23)
+        here = os.path.dirname(os.path.abspath(__file__))
+        out = {}
+        with tempfile.TemporaryDirectory() as top:
+            d = os.path.join(top, "card")
+            os.makedirs(d)
+            owner = {}
+            for s in range(FCLI_SOURCES):
+                im = Image.fromarray(textured(rng, 320, 400))
+                for name, v in (("src", im),
+                                ("crop", im.crop((50, 30, 350, 290))),
+                                ("s75", im.resize((300, 240), Image.BOX))):
+                    path = os.path.join(d, f"s{s:02d}_{name}.png")
+                    v.save(path)
+                    owner[os.path.basename(path)] = s
+            cpu_src = os.path.join(top, "cpu")
+            shutil.copytree(d, cpu_src)
+            args = ["-i.algos", "dct+fdct+orb"]
+            t0 = time.perf_counter()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = main(["-use", d, *args, "-create", "-update"])
+            if rc:
+                raise AssertionError(f"-update rc {rc}")
+            out["update_s"] = round(time.perf_counter() - t0, 3)
+            k5 = hl.hamming_lanes_topk.launches
+            card = {}
+            for alg in ("fdct", "orb"):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rc = main(["-use", d, "-p.alg", alg, "-similar",
+                               "-json"])
+                if rc:
+                    raise AssertionError(f"{alg} -similar rc {rc}")
+                card[alg] = groups_of(buf.getvalue())
+                joined = joined_sources(card[alg], owner)
+                out[f"{alg}_groups"] = len(card[alg])
+                out[f"{alg}_sources_joined"] = joined
+                if joined != FCLI_SOURCES:
+                    raise AssertionError(f"{alg}: only {joined} sources "
+                                         f"joined their 3 variants")
+                src = FCLI_SOURCES // 3
+                needle = os.path.join(d, f"s{src:02d}_src.png")
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rc = main(["-use", d, "-p.alg", alg, "-similar-to",
+                               needle, "-json"])
+                hit = json.loads(buf.getvalue())
+                got = {owner[os.path.basename(m["path"])]
+                       for m in hit[0]["matches"]} if hit else set()
+                if rc or src not in got:
+                    raise AssertionError(f"{alg} -similar-to missed: {got}")
+                out[f"{alg}_similar_to_matches"] = len(hit[0]["matches"])
+            if hl.hamming_lanes_topk.launches == k5:
+                raise AssertionError("K5 did not run in the fcli phase")
+            code = (
+                "import contextlib, io, json, sys\n"
+                "from cbird_tpu_torch.cli.main import main\n"
+                "d = sys.argv[1]\n"
+                "res = {}\n"
+                "with contextlib.redirect_stdout(io.StringIO()):\n"
+                "    assert main(['-use', d, '-i.algos', 'dct+fdct+orb',"
+                " '-create', '-update']) == 0\n"
+                "for alg in ('fdct', 'orb'):\n"
+                "    buf = io.StringIO()\n"
+                "    with contextlib.redirect_stdout(buf):\n"
+                "        assert main(['-use', d, '-p.alg', alg, '-similar',"
+                " '-json']) == 0\n"
+                "    res[alg] = json.loads(buf.getvalue())\n"
+                "print(json.dumps(res))\n")
+            env = dict(os.environ, CBIRD_TORCH_DEVICE="cpu",
+                       PYTHONPATH=here)
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c", code, cpu_src], env=env, cwd=here,
+                capture_output=True, text=True, timeout=900)
+            if proc.returncode:
+                raise AssertionError(f"cpu run: {proc.stderr[-2000:]}")
+            res = json.loads(proc.stdout.strip().splitlines()[-1])
+            for alg in ("fdct", "orb"):
+                cpu = groups_of(json.dumps(res[alg]))
+                if cpu != card[alg]:
+                    raise AssertionError(
+                        f"{alg}: the card's groups differ from the CPU "
+                        f"run's: {sorted(card[alg] ^ cpu)[:4]}")
+            out["cpu_run_s"] = round(time.perf_counter() - t0, 1)
+        return out
+
+
+def textured(rng, h: int, w: int) -> np.ndarray:
+    """Blocks of random grey on a flat ground (the tests' textured images),
+    one block per ~3000 pixels, at least 40."""
+    img = np.full((h, w), 60, np.uint8)
+    for _ in range(max(40, h * w // 3000)):
+        bh = int(rng.integers(8, max(9, min(50, h // 4))))
+        bw = int(rng.integers(8, max(9, min(50, w // 4))))
+        y, x = rng.integers(0, h - bh), rng.integers(0, w - bw)
+        img[y:y + bh, x:x + bw] = rng.integers(0, 255)
+    return img
+
+
+def groups_of(js: str) -> set:
+    """-json output -> {(needle, frozenset(matches))} by file name."""
+    name = lambda m: os.path.basename(m["path"])
+    return {(name(g["needle"]), frozenset(map(name, g["matches"])))
+            for g in json.loads(js)}
+
+
+def joined_sources(groups: set, owner: dict) -> int:
+    """Sources whose variants the groups connect (union-find)."""
+    parent = {p: p for p in owner}
+
+    def find(p):
+        while parent[p] != p:
+            p = parent[p]
+        return p
+    for needle, matches in groups:
+        for p in matches:
+            parent[find(p)] = find(needle)
+    return sum(len({find(p) for p in owner if owner[p] == s}) == 1
+               for s in set(owner.values()))
+
 def main() -> int:
     args = sys.argv[1:]
     if any(a != "--triangle-all" for a in args):
@@ -1672,6 +2256,9 @@ def main() -> int:
         "K4": {"name": "hamming_topk", "route": "cuda",
                "source": "cbird_tpu_torch/csrc/hamming_topk.cu",
                "replaces": "cbird_tpu/ops/pallas_hamming.py:104"},
+        "K5": {"name": "hamming_lanes_topk", "route": "cuda",
+               "source": "cbird_tpu_torch/csrc/hamming_lanes_topk.cu",
+               "replaces": "cbird_tpu/ops/hamming.py:894"},
     }
     for k in s.kernels.values():
         k["launches"] = 0
@@ -1683,7 +2270,9 @@ def main() -> int:
     # the main path: each phase with the counters from zero, read just after
     for name, fn in (("query", s.query_phase), ("self", s.self_phase),
                      ("ph", s.ph_phase), ("video", s.video_phase),
-                     ("vcli", s.video_cli_phase), ("cli", s.cli_phase)):
+                     ("vcli", s.video_cli_phase), ("cli", s.cli_phase),
+                     ("feat", s.feat_phase), ("fdct", s.fdct_phase),
+                     ("orb", s.orb_phase), ("fcli", s.fcli_phase)):
         s.set_launches(dict.fromkeys(s.counters, 0))
         second = hamming_topk.overflowed
         s.phase(name, fn)

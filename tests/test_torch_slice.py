@@ -145,10 +145,13 @@ def test_jpeg_digests_equal_reference():
 
 
 def test_not_ported_verbs_fail_cleanly(jax_index, capsys):
+    """Color, the template matcher and the verbs that need them exit 2
+    (fdct and orb are ported: tests/test_torch_orb.py)."""
     d, _ = jax_index
-    assert port_cli.main(["-use", d, "-p.alg", "orb", "-similar"]) == 2
-    assert port_cli.main(["-use", d, "-browse"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    for args in (["-p.alg", "color", "-similar"], ["-p.tm", "1", "-similar"],
+                 ["-merge"], ["-test-image-search"], ["-browse"]):
+        assert port_cli.main(["-use", d, *args]) == 2, args
+        assert "not ported yet" in capsys.readouterr().err
 
 
 def test_show_report_equal(jax_index, tmp_path, monkeypatch):
@@ -166,8 +169,9 @@ def test_show_report_equal(jax_index, tmp_path, monkeypatch):
 
 
 def test_slice_imports_no_jax(corpus):
-    """Every module of the port imported, then the CLI slice run: neither
-    jax nor any module of the JAX package (cbird_tpu) is loaded."""
+    """Every module of the port imported, then the CLI slice run (dct, and
+    -update -similar with fdct and with orb): neither jax nor any module
+    of the JAX package (cbird_tpu) is loaded."""
     d = _copy(corpus, "nojax")
     needle = os.path.join(d, "img000_s100.png")
     code = (
@@ -181,6 +185,11 @@ def test_slice_imports_no_jax(corpus):
         f"assert main(['-use', {d!r}, *args, '-create', '-update',"
         " '-similar', '-json']) == 0\n"
         f"assert main(['-use', {d!r}, '-similar-to', {needle!r}]) == 0\n"
+        "import contextlib, io\n"
+        "for alg in ('fdct', 'orb'):\n"
+        "    with contextlib.redirect_stdout(io.StringIO()):\n"
+        f"        assert main(['-use', {d!r}, '-i.algos', 'dct+' + alg,"
+        " '-update', '-p.alg', alg, '-similar']) == 0\n"
         "bad = [k for k in sys.modules if k == 'jax' or k == 'cbird_tpu'\n"
         "       or k.startswith(('jax.', 'cbird_tpu.'))]\n"
         "assert not bad, bad\n"
