@@ -55,10 +55,11 @@ def build(name: str) -> str:
     so = library_path(name)
     if os.path.exists(so):
         return so
+    compiler = nvcc()  # raises before any file is made
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    cmd = [compiler, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=600)

@@ -5,8 +5,12 @@ twin.
 ``hamming_lanes_topk`` (XLA: ``_chunk_dists_lanes`` and ``approx_min_k``
 over 16k-row chunks), the k-nearest search of the orb index over 256-bit
 ORB descriptors.  Torch has neither a popcount nor ``approx_min_k``.  The
-kernel is ``csrc/hamming_lanes_topk.cu``; its header says what bounds it
-on an H100 and how the design answers that.
+kernel is ``csrc/hamming_lanes_topk.cu``: its distances come from a +-1
+product over K = 256 on the tensor cores (``wgmma``), and a per-needle
+admission limit in the epilogue keeps the top-k work off the common path;
+its header says what bounds it on an H100 and how the design answers that.
+``hamming_lanes_topk_popc`` launches the same source's popcount form, the
+yardstick, which nothing but ``chip_smoke.py``'s checks call.
 
 Contract: for each needle, the ``k`` valid rows with the smallest
 (distance, row) key among rows at distance < ``bound``, ascending.  A row
@@ -18,14 +22,16 @@ recall of 0.99 above 16384 rows; the orb index passes its vote threshold
 (``cvThresh``) as the bound, which keeps every vote: the k nearest among
 rows at d < c are the k nearest rows filtered to d < c.
 
-On a CPU tensor ``hamming_lanes_topk`` runs ``hamming_lanes_topk_plain``;
-on any other device it launches the kernel or raises.
-``hamming_lanes_topk.launches`` counts the calls that launched it.
+On a CPU tensor both wrappers run ``hamming_lanes_topk_plain``; on any
+other device each launches its kernel or raises: neither falls back to the
+other or to the plain twin.  ``hamming_lanes_topk.launches`` and
+``hamming_lanes_topk_popc.launches`` count the calls that launched each.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -98,30 +104,87 @@ def check_operands(needles: torch.Tensor, hay: torch.Tensor,
 
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_VP, _INT, _VP, _VP, _INT, _INT, _INT, _INT, _VP, _VP, _VP, _VP]
+# cbird_lanes_topk (tensor cores): ..., bound, xc, chunk, scratch, ...;
+# cbird_lanes_topk_popc: ..., bound, splits, scratch, ...
+_ARGS = [_VP, _INT, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _VP, _VP, _VP,
+         _VP]
+_POPC_ARGS = [_VP, _INT, _VP, _VP, _INT, _INT, _INT, _INT, _VP, _VP, _VP,
+              _VP]
+# the tensor-core form's tiles (csrc/hamming_lanes_topk.cu): units of BQ
+# needles x a chunk of whole steps of SUB columns; a chunk holds at most
+# MAX_CHUNK columns (a list key keeps 23 bits of column offset)
+BQ, SUB, MAX_CHUNK = 192, 256, 1 << 23
+UNIT_COST = 2  # a unit's fixed cost in steps (its A tiles, lists, merge)
 
 
 def list_size(k: int) -> int:
-    """Keys the kernel keeps a needle and split: the smaller of its
+    """Keys the kernels keep a needle and split: the smaller of their
     list sizes (1, MAX_K) that holds k."""
     return 1 if k <= 1 else MAX_K
 
 
 def _load():
-    return _build.load_kernel("hamming_lanes_topk", "cbird_lanes_topk",
-                              _ARGS)
+    lib = _build.load_kernel("hamming_lanes_topk", "cbird_lanes_topk",
+                             _ARGS)
+    lib.cbird_lanes_topk_popc.argtypes = _POPC_ARGS
+    lib.cbird_lanes_topk_popc.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=1024)
+def tc_plan(q: int, n: int, sms: int) -> tuple[int, int]:
+    """The tensor-core form's column chunks: (xc, chunk columns).  Units of
+    BQ needles x a chunk; one block a multiprocessor walks every sms-th
+    unit.  The chunk minimises the slowest multiprocessor's steps, each unit
+    costing UNIT_COST steps more, over at most 16 units a multiprocessor;
+    so a call with few needles splits its columns.  (0, 0) for no rows."""
+    steps = -(-n // SUB)
+    if steps == 0:
+        return 0, 0
+    ytiles = -(-q // BQ)
+    best_ch, best_cost = None, None
+    for xc in range(-(-steps // (MAX_CHUNK // SUB)), steps + 1):
+        ch = -(-steps // xc)
+        if -(-steps // ch) != xc:
+            continue  # the same chunk as a smaller xc
+        units = ytiles * xc
+        if best_ch is not None and units > 16 * sms:
+            break
+        cost = -(-units // sms) * (ch + UNIT_COST)
+        if best_cost is None or cost < best_cost:
+            best_ch, best_cost = ch, cost
+    return -(-steps // best_ch), best_ch * SUB
 
 
 def splits_for(q: int, n: int, sms: int) -> int:
-    """Haystack splits of one launch: enough blocks of 128 needles for
-    about eight a multiprocessor, each split at least 1024 rows."""
+    """Haystack splits of one popcount-form launch: enough blocks of 128
+    needles for about eight a multiprocessor, each split at least 1024
+    rows."""
     blocks = -(-q // 128)
     return max(1, min(-(-8 * sms // blocks), -(-n // 1024), 65535))
 
 
+def _prepare(needles, hay, valid, k, what):
+    """The launch's checked operands and outputs.
+    @return (lib, q, n, dists, rows, sms)"""
+    lib = _load()
+    check_operands(needles, hay, valid)
+    if needles.device.type != "cuda":
+        raise ValueError(f"{what} needs CUDA tensors, got {needles.device}")
+    if k > MAX_K:
+        raise ValueError(f"k = {k} is above the kernel's {MAX_K}")
+    q, n = needles.shape[0], hay.shape[0]
+    dev = needles.device
+    dists = torch.empty((q, k), dtype=torch.int32, device=dev)
+    rows = torch.empty((q, k), dtype=torch.int32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return lib, q, n, dists, rows, sms
+
+
 def hamming_lanes_topk(needles: torch.Tensor, hay: torch.Tensor,
                        valid: torch.Tensor, k: int, bound: int = BINS):
-    """Exact k nearest valid rows at distance < ``bound`` per needle.
+    """Exact k nearest valid rows at distance < ``bound`` per needle, on
+    the tensor cores.
 
     @param needles [Q, 4] int64, hay [T, 4] int64, valid [T] bool
     @return (dists [Q, k] int32 ascending, rows [Q, k] int32)
@@ -129,30 +192,45 @@ def hamming_lanes_topk(needles: torch.Tensor, hay: torch.Tensor,
     k, bound = int(k), max(0, min(int(bound), BINS))
     if needles.device.type == "cpu":
         return hamming_lanes_topk_plain(needles, hay, valid, k, bound)
-    lib = _load()
-    check_operands(needles, hay, valid)
-    if needles.device.type != "cuda":
-        raise ValueError(f"hamming_lanes_topk needs CUDA tensors, got "
-                         f"{needles.device}")
-    if k > MAX_K:
-        raise ValueError(f"k = {k} is above the kernel's {MAX_K}")
-    q, n = needles.shape[0], hay.shape[0]
-    dev = needles.device
-    dists = torch.empty((q, k), dtype=torch.int32, device=dev)
-    rows = torch.empty((q, k), dtype=torch.int32, device=dev)
+    lib, q, n, dists, rows, sms = _prepare(needles, hay, valid, k,
+                                           "hamming_lanes_topk")
     if q == 0 or k == 0:
         return dists, rows
-    splits = splits_for(q, n, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
-    scratch = torch.empty(splits * list_size(k) * q, dtype=torch.int64,
-                          device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    xc, chunk = tc_plan(q, n, sms)
+    scratch = torch.empty(max(xc, 1) * list_size(k) * q, dtype=torch.int64,
+                          device=needles.device)
+    stream = torch.cuda.current_stream(needles.device).cuda_stream
     _build.check(lib, lib.cbird_lanes_topk(
         needles.data_ptr(), q, hay.data_ptr(), valid.data_ptr(), n, k,
-        bound, splits, scratch.data_ptr(), dists.data_ptr(),
+        bound, xc, chunk, scratch.data_ptr(), dists.data_ptr(),
         rows.data_ptr(), stream), "lanes_topk")
     hamming_lanes_topk.launches += 1
     return dists, rows
 
 
 hamming_lanes_topk.launches = 0
+
+
+def hamming_lanes_topk_popc(needles: torch.Tensor, hay: torch.Tensor,
+                            valid: torch.Tensor, k: int, bound: int = BINS):
+    """The same by the kernel's popcount form (the yardstick)."""
+    k, bound = int(k), max(0, min(int(bound), BINS))
+    if needles.device.type == "cpu":
+        return hamming_lanes_topk_plain(needles, hay, valid, k, bound)
+    lib, q, n, dists, rows, sms = _prepare(needles, hay, valid, k,
+                                           "hamming_lanes_topk_popc")
+    if q == 0 or k == 0:
+        return dists, rows
+    splits = splits_for(q, n, sms)
+    scratch = torch.empty(splits * list_size(k) * q, dtype=torch.int64,
+                          device=needles.device)
+    stream = torch.cuda.current_stream(needles.device).cuda_stream
+    _build.check(lib, lib.cbird_lanes_topk_popc(
+        needles.data_ptr(), q, hay.data_ptr(), valid.data_ptr(), n, k,
+        bound, splits, scratch.data_ptr(), dists.data_ptr(),
+        rows.data_ptr(), stream), "lanes_topk_popc")
+    hamming_lanes_topk_popc.launches += 1
+    return dists, rows
+
+
+hamming_lanes_topk_popc.launches = 0

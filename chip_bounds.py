@@ -9,9 +9,10 @@ clock and the card's maximum SM clock.  This script reads what the
 compiler made of both and what the card sustains:
 
   sass     cuobjdump -sass of the count kernels (K1, K1-mma), the top-k
-           scan (K4) and the band counts (K3) into OUT_DIR/<name>.sass,
+           scan (K4), the band counts (K3) and the 256-bit k-nearest
+           search (K5 and its popcount form) into OUT_DIR/<name>.sass,
            and per loop (a backward branch) the opcode counts of its body;
-           for the wgmma kernels (K1-mma, K2-mma) their main loop's
+           for the wgmma kernels (K1-mma, K2-mma, K5) their main loop's
            warpgroup MMAs (QGMMA for e4m3, IGMMA for s8), moves, shifts,
            LEA, HADD2, barriers (SYNCS, BAR, WARPGROUP) and shared loads
            and stores: the script fails if a main loop holds no *GMMA or
@@ -29,7 +30,9 @@ compiler made of both and what the card sustains:
            kernel's shared-memory layout, one block an SM): chains on one
            and on two warpgroups, and two warpgroups that count each
            product's sign bits after it, as IGMMA per clock per SM and
-           int8 TOPS
+           int8 TOPS; and the e4m3 wgmma with f16 sums (K1-mma's and K5's
+           products) chained on two warpgroups, as QGMMA per clock per SM
+           and TOPS
   K1       the popcount K1 at Q=16384, N=2^21, t=5 (the K1 variants'
            shape, on operands made as chip_smoke's): 20 launches after
            K1-mma's two forms, as chip_smoke times them, and 100 alone,
@@ -167,8 +170,7 @@ __global__ void __launch_bounds__(256) imma_tile_probe(
     tb[0] = c0; tb[1] = clock64(); tb[2] = g0; tb[3] = globaltimer();
   }
 }
-// the int8 wgmma in K1-mma's shape (whose e4m3 runs at the same dense
-// rate): m64n256k32, A from registers, B (256 columns x 64 bytes of +-1)
+// the int8 wgmma in K1-mma's shape: m64n256k32, A from registers, B (256 columns x 64 bytes of +-1)
 // from shared memory in the kernel's K-major layout; WGS warpgroups a
 // block, one block an SM, each a chain of two products a group on its own
 // 128 accumulators.  Chained: one group in flight while the next is
@@ -245,6 +247,65 @@ __global__ void __launch_bounds__(128 * WGS, 1) wgmma_probe(
     tb[0] = c0; tb[1] = clock64(); tb[2] = g0; tb[3] = globaltimer();
   }
 }
+// the e4m3 wgmma with f16 sums (K1-mma's and K5's form): m64n256k32, +-1
+// operands (0x38, 0xB8) in the same layout, WGS warpgroups a block, one
+// block an SM, each a chain of two products a group on its own 64 registers
+// of f16 pairs, one group in flight while the next is issued
+__device__ __forceinline__ void wgmma256_f16(int (&d)[64], const unsigned (&a)[4],
+                                             unsigned long long desc) {
+#define D8(i)                                                              \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), \
+      "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.f16.e4m3.e4m3 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+#undef D8
+}
+template <int WGS>
+__global__ void __launch_bounds__(128 * WGS, 1) wgmma_f16_probe(
+    unsigned* out, unsigned long long* times, int iters) {
+  __shared__ __align__(1024) uint4 b[256 * 64 / 16];
+  const unsigned long long c0 = clock64(), g0 = globaltimer();
+  for (int i = threadIdx.x; i < 256 * 64 / 16; i += blockDim.x)
+    b[i] = make_uint4(0x38B83838u, 0xB83838B8u, 0x3838B8B8u, 0xB8B83838u);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+  const unsigned base = static_cast<unsigned>(__cvta_generic_to_shared(b));
+  const unsigned long long desc =
+      ((base & 0x3FFFF) >> 4) | (8ull << 16) | (32ull << 32);
+  const unsigned a[4] = {0x38B83838u ^ ((threadIdx.x & 1) << 7), 0xB83838B8u,
+                         0x3838B8B8u, 0xB8B83838u};
+  int acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0;
+#pragma unroll 1
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(acc[i])::"memory");
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+    wgmma256_f16(acc, a, desc);
+    wgmma256_f16(acc, a, desc + 16);
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+  int cnt = 0;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) cnt += acc[i];
+  if (cnt == 0x12345678) out[0] = cnt;
+  if (threadIdx.x == 0) {
+    unsigned long long* tb = times + 4 * blockIdx.x;
+    tb[0] = c0; tb[1] = clock64(); tb[2] = g0; tb[3] = globaltimer();
+  }
+}
 extern "C" int cbird_probe(int op, void* out, void* times, int blocks,
                            int iters, unsigned d, unsigned lim,
                            void* stream) {
@@ -265,8 +326,10 @@ extern "C" int cbird_probe(int op, void* out, void* times, int blocks,
     wgmma_probe<2, false><<<blocks, 256, 0, s>>>(o, t, iters);
   else if (op == 6)
     wgmma_probe<1, false><<<blocks, 128, 0, s>>>(o, t, iters);
-  else
+  else if (op == 7)
     wgmma_probe<2, true><<<blocks, 256, 0, s>>>(o, t, iters);
+  else
+    wgmma_f16_probe<2><<<blocks, 256, 0, s>>>(o, t, iters);
   return (int)cudaGetLastError();
 }
 """
@@ -326,7 +389,7 @@ def loops(lines: list[str]) -> list[dict]:
 
 
 def wgmma_main_loop(fn: str, lps: list[dict]) -> dict:
-    """The tensor-core count's main loop (the loop with the most
+    """A tensor-core kernel's main loop (the loop with the most
     warpgroup MMAs, *GMMA: QGMMA for e4m3, IGMMA for s8): its opcode
     counts that matter, and ok when it holds a *GMMA and no mma.sync
     (IMMA, HMMA)."""
@@ -336,8 +399,8 @@ def wgmma_main_loop(fn: str, lps: list[dict]) -> dict:
                default={"opcodes": {}, "instructions": 0})
     ops = body["opcodes"]
     picked = {o: c for o, c in ops.items() if o.endswith("GMMA") or o in (
-        "IMMA", "HMMA", "MOV", "IMAD", "SHF", "LEA", "HADD2", "SYNCS", "BAR",
-        "WARPGROUP", "LDS", "STS")}
+        "IMMA", "HMMA", "MOV", "IMAD", "SHF", "LEA", "HADD2", "HMNMX2",
+        "HSETP2", "VOTE", "SYNCS", "BAR", "WARPGROUP", "LDS", "STS")}
     return {"check": "wgmma main loop", "function": fn,
             "masked": "ILb1E" in fn, "instructions": body["instructions"],
             "opcodes": picked,
@@ -475,7 +538,8 @@ def main() -> int:
     so = build_probes(out_dir)
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     sass = {}
-    kernels = ("count_below", "count_below_mma", "hamming_topk", "band_count")
+    kernels = ("count_below", "count_below_mma", "hamming_topk", "band_count",
+               "hamming_lanes_topk")
     for name, path in [(k, _build.build(k)) for k in kernels] + [("probe",
                                                                   so)]:
         text = subprocess.run([cuobjdump, "-sass", path], check=True,
@@ -488,7 +552,7 @@ def main() -> int:
             print(json.dumps({"sass": fn, "loops": sass[fn]}), flush=True)
     ok = True
     for fn, lps in sass.items():
-        if "wgmma_count_kernel" in fn:
+        if "wgmma_count_kernel" in fn or "lanes_wgmma" in fn:
             row = wgmma_main_loop(fn, lps)
             ok &= row["ok"]
             print(json.dumps(row), flush=True)
@@ -546,6 +610,23 @@ def main() -> int:
                 ms * 1e-3 * sms * clk["clock64_mhz"]["median"] * 1e6),
             "int8_tops": n * 64 * 256 * 32 * 2 / (ms * 1e-3) / 1e12,
             "loop_opcodes": body["opcodes"]}), flush=True)
+    # the e4m3 wgmma with f16 sums on two warpgroups (K5's and K1-mma's
+    # products): QGMMA a clock per SM, and its TOPS against the table's
+    # 1979 for fp8
+    iters = 1 << 13
+    ms, clk = timed_ms(torch, lambda: pr.run(8, iters, sms), 5)
+    clk["clock64_mhz"] = pr.clock64_mhz()
+    n = sms * 2 * iters * 2
+    fn = next(f for f in sass if "wgmma_f16_probe" in f)
+    body = max(sass[fn], key=lambda lp: lp["instructions"],
+               default={"opcodes": {}})
+    print(json.dumps({
+        "probe": "wgmma_e4m3_f16_chained_2wg", "ms": ms, "clock": clk,
+        "QGMMA_per_clk_sm_at_max": n / (ms * 1e-3 * sms * max_mhz * 1e6),
+        "QGMMA_per_clk_sm_at_clock64": n / (
+            ms * 1e-3 * sms * clk["clock64_mhz"]["median"] * 1e6),
+        "e4m3_f16_tops": n * 64 * 256 * 32 * 2 / (ms * 1e-3) / 1e12,
+        "loop_opcodes": body["opcodes"]}), flush=True)
 
     # the popcount K1 at the K1 variants' shape, on operands made as
     # chip_smoke's timing operands are: 20 launches after 20 of each form

@@ -6,7 +6,8 @@ Builds chip_smoke's stores and images and, for each configuration below
 (those whose names start with one of the NAMEs, when any are given),
 prints one JSON line: wall ms per call (host clock to the card's idle),
 device busy ms per call (the kernels', copies' and sets' time from
-``torch.profiler``),
+``torch.profiler``, in a traced step after a traced warm-up step of at
+least WARM_S; a trace with no device event raises),
 the idle share 1 - busy / wall, the five device kernels with the most
 time, and the host functions with the most cumulative time in one call
 under ``cProfile`` (a separate, untraced call).  The card's name and power
@@ -49,6 +50,7 @@ import numpy as np
 import chip_smoke
 
 T = chip_smoke.T
+WARM_S = 1.0  # the traced warm-up step's least length
 
 
 def trace(torch, fn, reps: int) -> dict:
@@ -56,19 +58,36 @@ def trace(torch, fn, reps: int) -> dict:
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    # an untimed step of at least WARM_S, traced and discarded (the
+    # schedule's warm-up), before the timed one: after a trace of many
+    # events (feat 1024) the next traces lost the device records of their
+    # first tens of milliseconds, so that a short one (orb similar-to 16)
+    # held no device event and longer ones lost their first calls' kernels
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+        t0 = time.perf_counter()
+        while True:
+            fn()
+            torch.cuda.synchronize()
+            if time.perf_counter() - t0 >= WARM_S:
+                break
+        prof.step()
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
     # kernels, copies and sets only: an operator's entry repeats the
-    # device time of the kernels it launched
+    # device time of the kernels it launched, and the step's annotation on
+    # the device spans them
     dev = [(e.key, e.self_device_time_total / 1e3 / reps)
            for e in prof.key_averages()
            if e.device_type != torch.autograd.DeviceType.CPU
-           and e.self_device_time_total > 0]
+           and e.self_device_time_total > 0
+           and not e.key.startswith("ProfilerStep")]
     busy = sum(ms for _, ms in dev)
+    if not dev:
+        raise RuntimeError("the trace holds no device event")
     top = sorted(dev, key=lambda kv: -kv[1])[:5]
     prof_host = cProfile.Profile()
     prof_host.enable()
@@ -80,7 +99,7 @@ def trace(torch, fn, reps: int) -> dict:
                    for k, v in st.stats.items()
                    if "cbird_tpu_torch" in k[0]), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall, "busy_ms": busy,
-            "idle_share": 1 - busy / wall,
+            "idle_share": 1 - busy / wall, "device_entries": len(dev),
             "top_kernels_ms": [[k[:60], round(ms, 4)] for k, ms in top],
             "top_host_cum_ms": [[k, round(ms, 2)] for k, ms in host]}
 

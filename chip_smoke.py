@@ -74,12 +74,15 @@ Phases, each printed on its own line (pass/fail, numbers, wall ms, card):
            -json and -similar-to; the groups equal the same CLI run with
            CBIRD_TORCH_DEVICE=cpu in a subprocess (its own -update)
 
-The kernels phase also holds K5 (the 256-bit k-nearest search) against
-its plain twin at Q in K5_Q x T in K5_T (ties, an all-invalid range, k in
-{1, 10}, bound 25 and none) and times it at Q=6400 x T=2^20, k=10, bound
-25 and unbounded, beside two bounds: bound_ms, that of its own form (8
-POPC a pair), and tc_bound_ms, the function's (its +-1 product over
-K = 256 on the tensor cores, as K4's tc_bound_ms).
+The kernels phase also holds K5 (the 256-bit k-nearest search on the
+tensor cores) and K5-popc (its popcount form, the yardstick) against
+their plain twin at Q in K5_Q x T in K5_T (ties, some across the tensor-core
+form's chunk edges, an all-invalid range, k in {1, 10}, bound 25 and
+none) and times both in turns at K5_TIMED: Q=6400 x T=2^20, k=10, bound
+25 and unbounded, and the orb -similar launch, 8192 x 2^20 at bound 25,
+beside two bounds: tc_bound_ms, the function's (its +-1 product over
+K = 256 on the tensor cores, as K4's tc_bound_ms; K5's bound_ms), and
+K5-popc's bound_ms, that of its own form (8 POPC a pair).
 
 The main path is query, self, ph, video, vcli, cli, feat, fdct, orb and
 fcli: the launch
@@ -165,7 +168,7 @@ COPIES, COPY_LEN = 64, 200
 BLACK_VIDEOS, BLACK_AT = 2000, (100, 200, 300, 400)
 NEEDLE_TRIMMED, NEEDLE_SOURCES, NEEDLE_SEG, NEEDLE_BLACK = 16384, 24, 300, 16
 # kernels only the kernels phase launches: the main path must not
-OFF_PATH = ("K1-mma-bf16", "K1", "K2")
+OFF_PATH = ("K1-mma-bf16", "K1", "K2", "K5-popc")
 # sizes: K3's checks (sorted block rows, tile size s, thresholds; the
 # first is timed; s=1024 and 4096 are the other sizes the main path
 # picks), the self phase's store, the ph phase's stores (the first is
@@ -187,10 +190,15 @@ FDCT_IMAGES, ORB_IMAGES = 10486, 2622
 FEAT_GROUPS, FEAT_NEEDLES = 64, 16
 ORB_SIMILAR_ROWS = 1 << 18
 FCLI_SOURCES = 24
-# K5: checked needle and row counts, the timed needle count
-K5_Q = (1, 63, 65, 513)
-K5_T = (1, 255, 257, 16385, 1 << 20)
-K5_TIMED_Q = 6400
+# K5: checked needle and row counts (around the tensor-core form's m64
+# tiles, its units of 192 needles, its steps of 256 columns, and one
+# column past a chunk edge: 8193 rows in 33 chunks of one step); the
+# timed shapes (name, Q, bound), all at T=2^20, k=10: the first is the
+# kernels line's
+K5_Q = (1, 63, 65, 191, 192, 193, 513)
+K5_T = (1, 255, 256, 257, 8193, 16385, 1 << 20)
+K5_TIMED = (("6400_bound25", 6400, 25), ("6400_unbounded", 6400, 257),
+            ("8192_bound25", 8192, 25))
 # chip_bounds.py's probe library (the SM clock for the bounds)
 PROBE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                          "probes")
@@ -236,7 +244,9 @@ class Smoke:
                          "K3": (bc.band_counts, "launches"),
                          "K3-run": (bc.run_tiles, "launches"),
                          "K4": (tk.hamming_topk, "launches"),
-                         "K5": (hl.hamming_lanes_topk, "launches")}
+                         "K5": (hl.hamming_lanes_topk, "launches"),
+                         "K5-popc": (hl.hamming_lanes_topk_popc,
+                                     "launches")}
 
     def launches(self) -> dict[str, int]:
         return {k: getattr(f, a) for k, (f, a) in self.counters.items()}
@@ -1672,13 +1682,17 @@ class Smoke:
 
     # ---- the feature algorithms (fdct, orb) -------------------------------
     def k5_kernels(self):
-        """K5 against its plain twin at K5_Q x K5_T (an all-invalid range,
-        planted ties, k in {1, 10}, bound 25 and none), then timed at
-        Q=6400 x T=2^20, k=10, bound 25 and unbounded, beside its bound
+        """K5 (tensor cores) and K5-popc (popcount) against their plain
+        twin at K5_Q x K5_T (an all-invalid range, planted ties: 401 rows
+        at one distance, and ten across a chunk edge of the 513-needle
+        launch, k in {1, 10}, bound 25 and none), then both timed in turns
+        (K5, K5-popc, K5-popc, K5) at K5_TIMED, beside the function's bound
         and the +-1 int8 product (the product alone: no library call
         computes a Hamming k-nearest)."""
         torch = self.torch
         from cbird_tpu_torch.ops import hamming_lanes as hl
+        forms = {"K5": hl.hamming_lanes_topk,
+                 "K5-popc": hl.hamming_lanes_topk_popc}
         rng = np.random.default_rng(SEED + 10)
         tmax = max(K5_T)
         hay = torch.from_numpy(rng.integers(
@@ -1691,71 +1705,91 @@ class Smoke:
         needles = hay[pick].clone()
         needles[:, 1] ^= 5
         needles[0] = hay[7]
-        err, checks = 0.0, 0
+        # needle 1's ten nearest: across the first chunk edge of the
+        # 513-needle launch, the source row below it
+        edge = hl.tc_plan(513, tmax, torch.cuda.get_device_properties(
+            self.dev).multi_processor_count)[1]
+        needles[1] = hay[edge - 20]
+        hay[edge - 5:edge + 5] = hay[edge - 20]
+        valid[edge - 20:edge + 5] = True
+        err = {name: 0.0 for name in forms}
+        checks = 0
         for t in K5_T:
             for q in K5_Q:
                 nd = needles[:q].contiguous()
                 for k in (1, 10):
                     for bound in (25, hl.BINS):
-                        got = hl.hamming_lanes_topk(nd, hay[:t], valid[:t],
-                                                    k, bound)
                         want = hl.hamming_lanes_topk_plain(
                             nd, hay[:t], valid[:t], k, bound)
-                        torch.cuda.synchronize()
-                        what = f"K5 q={q} t={t} k={k} bound={bound}"
-                        err = max(err, self.same(got[0], want[0], what),
-                                  self.same(got[1], want[1], what))
+                        for name, form in forms.items():
+                            got = form(nd, hay[:t], valid[:t], k, bound)
+                            torch.cuda.synchronize()
+                            what = f"{name} q={q} t={t} k={k} bound={bound}"
+                            err[name] = max(
+                                err[name], self.same(got[0], want[0], what),
+                                self.same(got[1], want[1], what))
                         checks += 1
-        q, k = K5_TIMED_Q, 10
-        nd = hay[torch.from_numpy(rng.integers(0, tmax, q)).to(self.dev)]
-        nd[:, 2] ^= 0x10101
-        nd = nd.contiguous()
+        k = 10
         self.sm_clock()
         rows = {}
-        for name, bound in (("bound25", 25), ("unbounded", hl.BINS)):
-            got = hl.hamming_lanes_topk(nd, hay, valid, k, bound)
+        plain_ms = None
+        for name, q, bound in K5_TIMED:
+            nd = hay[torch.from_numpy(rng.integers(0, tmax, q)).to(self.dev)]
+            nd[:, 2] ^= 0x10101
+            nd = nd.contiguous()
             want = hl.hamming_lanes_topk_plain(nd, hay, valid, k, bound)
-            err = max(err, self.same(got[0], want[0], f"K5 timed {name}"),
-                      self.same(got[1], want[1], f"K5 timed {name}"))
-            row = rows[name] = {
-                "ms": self.event_ms(
-                    lambda: hl.hamming_lanes_topk(nd, hay, valid, k, bound),
-                    10),
-                "plain_ms": self.event_ms(
+            row = rows[name] = {}
+            for form in ("K5", "K5-popc"):
+                got = forms[form](nd, hay, valid, k, bound)
+                err[form] = max(
+                    err[form], self.same(got[0], want[0], f"{form} {name}"),
+                    self.same(got[1], want[1], f"{form} {name}"))
+            del want
+            for form in ("K5", "K5-popc", "K5-popc", "K5"):  # in turns
+                row.setdefault(form, []).append(self.event_ms(
+                    lambda: forms[form](nd, hay, valid, k, bound), 10))
+            for form in ("K5", "K5-popc"):
+                row[f"{form}_ms"] = sum(row.pop(form)) / 2
+            if plain_ms is None:  # the kernels line's shape
+                plain_ms = self.event_ms(
                     lambda: hl.hamming_lanes_topk_plain(nd, hay, valid, k,
-                                                        bound), 1)}
-            self.bound(row, "bound_ms", "bound_by", **self.k5_work(q, tmax, k))
+                                                        bound), 1)
             self.bound(row, "tc_bound_ms", **self.k5_work(q, tmax, k, True))
+            self.bound(row, "popc_bound_ms", **self.k5_work(q, tmax, k))
         # yardstick of a tensor-core form: the +-1 int8 product of the
         # needles and 2^16 rows, times 16 (the whole product's [Q, T] int32
         # output would not fit the card)
+        q = K5_TIMED[0][1]
         pm = (torch.randint(0, 2, (q, 256), device=self.dev) * 2 - 1).to(
             torch.int8)
         hm = (torch.randint(0, 2, (256, 1 << 16), device=self.dev) * 2
               - 1).to(torch.int8)
         int_mm = 16 * self.event_ms(lambda: torch._int_mm(pm, hm), 5)
         del pm, hm
-        row = rows["bound25"]
-        self.kernels["K5"].update(
-            max_abs_err=err, ms=row["ms"], plain_ms=row["plain_ms"],
-            library_ms=None, int_mm_yardstick_ms=int_mm, ms_at=rows)
+        row = rows[K5_TIMED[0][0]]
+        for form in forms:
+            self.kernels[form].update(
+                max_abs_err=err[form], ms=row[f"{form}_ms"], plain_ms=plain_ms,
+                library_ms=None, int_mm_yardstick_ms=int_mm, ms_at=rows)
+            self.bound(self.kernels[form], "tc_bound_ms",
+                       **self.k5_work(q, tmax, k, True))
         self.bound(self.kernels["K5"], "bound_ms", "bound_by",
-                   **self.k5_work(q, tmax, k))
-        self.bound(self.kernels["K5"], "tc_bound_ms",
                    **self.k5_work(q, tmax, k, True))
+        self.bound(self.kernels["K5-popc"], "bound_ms", "bound_by",
+                   **self.k5_work(q, tmax, k))
         return {"K5_checks": checks, "K5_max_abs_err": err,
-                "K5_ms_at": rows,
-                "K5_shapes": f"Q={q} T=2^20 k=10, bound 25 (the kernels "
-                             f"line) and unbounded",
+                "K5_ms_at": rows, "K5_plain_ms": plain_ms,
+                "K5_shapes": "T=2^20 k=10; the kernels line: Q=6400, bound "
+                             "25",
                 "int_mm_6400x256x2^20_ms": round(int_mm, 4)}
 
     @staticmethod
     def k5_work(q, t, k, tc=False):
-        """Four __popcll (8 POPC) a pair, the bound of the kernel's own
-        form; ``tc``: the function's bound, its +-1 product over K = 256
-        (512 tensor operations a pair at the int8 rate) and a compare a
-        pair, as mma_work counts K1-mma's.  32 bytes and a validity byte a
-        row, 32 bytes a needle, k distances and rows written."""
+        """Four __popcll (8 POPC) a pair, the bound of the popcount form;
+        ``tc``: the function's bound, its +-1 product over K = 256 (512
+        tensor operations a pair at the int8 rate) and a compare a pair, as
+        mma_work counts K1-mma's.  32 bytes and a validity byte a row, 32
+        bytes a needle, k distances and rows written."""
         nbytes = 33 * t + 32 * q + 8 * q * k
         if tc:
             return dict(nbytes=nbytes, alu=q * t, int_ops=q * t,
@@ -2259,6 +2293,9 @@ def main() -> int:
         "K5": {"name": "hamming_lanes_topk", "route": "cuda",
                "source": "cbird_tpu_torch/csrc/hamming_lanes_topk.cu",
                "replaces": "cbird_tpu/ops/hamming.py:894"},
+        "K5-popc": {"name": "hamming_lanes_topk_popc", "route": "cuda",
+                    "source": "cbird_tpu_torch/csrc/hamming_lanes_topk.cu",
+                    "replaces": "cbird_tpu/ops/hamming.py:894"},
     }
     for k in s.kernels.values():
         k["launches"] = 0

@@ -1,10 +1,11 @@
 """Block shapes of the top-k scan (K4) and the band counts (K3), and the
 forms of the tensor-core count (K1-mma), measured on one NVIDIA GPU.
 
-    python3 chip_tune.py [k4] [k3] [mma]     (default: all three)
+    python3 chip_tune.py [k4] [k3] [mma] [k5]     (default: all four)
 
 Writes every variant below of ``csrc/hamming_topk.cu``,
-``csrc/band_count.cu`` and ``csrc/count_below_mma.cu`` to ``build/tune/``
+``csrc/band_count.cu``, ``csrc/count_below_mma.cu`` and
+``csrc/hamming_lanes_topk.cu`` to ``build/tune/``
 (a copy of the source with its shape constants edited, or parts of its
 code replaced by the text this script holds; the package always builds
 the sources as they are), builds them with
@@ -38,6 +39,16 @@ reported and left out (the run then exits non-zero):
       forms that leave out a part of the work (the unpack, the count, the
       products, all three, and the copies too), timed and not checked:
       what the time is made of.
+  k5  K5 (the 256-bit k-nearest search on the tensor cores) at Q=6400 x
+      T=2^20, k=10, bound 25 and unbounded (chip_smoke's timed operands).
+      Checked forms: the source; the rare case entered at every step
+      (its fixed cost: a group search of both rows in all four turns,
+      nothing admitted at bound 25); a ring of 3 slots with a packed ring
+      of 2; a packed ring of 2; the unpack loop unrolled 8; the unpack
+      with a column's four words in one 8-lane group (4-way bank
+      conflicts on its stores).  Timed-only forms at bound 25: no
+      epilogue; no products (zero sums); no unpack and no epilogue; the
+      ring alone (a sum kept alive where the epilogue goes).
 
 The first variant of each list is the shape the sources hold.  Prints
 the card's name and power limit, then one JSON line per variant.  Exits
@@ -416,6 +427,45 @@ MMA_DIAG = {
 }
 MMA_FORMS = {**MMA_VARIANTS, **MMA_DIAG}
 
+# K5 (hamming_lanes_topk.cu)
+K5_SOURCE = "source: one list a row, the quad's threads in turn"
+K5_VARIANTS = {
+    K5_SOURCE: (),
+    "rare case at every step": (
+        ("      if (__any_sync(0xffffffffu, p0 | p1)) {",
+         "      if (__any_sync(0xffffffffu, 1)) {"),
+        ("            if (p0) admit<KT, 0>", "            admit<KT, 0>"),
+        ("            if (p1) admit<KT, 1>", "            admit<KT, 1>")),
+    "ring 3, raw ring 2": (("constexpr int STAGES = 2;      // ring",
+                            "constexpr int STAGES = 3;      // ring"),
+                           ("constexpr int RAW_STAGES = 4;  // slots",
+                            "constexpr int RAW_STAGES = 2;  // slots")),
+    "raw ring 2": (("constexpr int RAW_STAGES = 4;  // slots",
+                    "constexpr int RAW_STAGES = 2;  // slots"),),
+    "unpack loop unrolled 8": (("#pragma unroll 2\n    for (int it = 0;",
+                                "#pragma unroll\n    for (int it = 0;"),),
+    "unpack: a column's 4 words in one 8-lane group (4-way conflicts)": (
+        ("    const int wd = lane >> 3;", "    const int wd = lane & 3;"),
+        ("it * 8 + (lane & 7);", "it * 8 + (lane >> 2);")),
+}
+# a sum kept alive by a store never taken: with no read of the sums left,
+# ptxas drops the products
+K5_NO_EPILOGUE = ((("      // the common case: no sum of the warp's rows",
+                    "      if (lane == 0) bar_arrive(r.empty + 8 * slot);"),
+                   "      if (acc[0] == 0x7FFFFFFF) sts32(lst[0], 0);\n"),)
+K5_NO_MMA = ((("      mma_e4m3<0>(acc, a[0], b_desc(sb));",
+               "      wgmma_commit();"),
+              "#pragma unroll\n      for (int e = 0; e < NACC; ++e) acc[e] = 0;\n"),)
+K5_NO_UNPACK = (("    for (int it = 0; it < SUB / 32; ++it) {",
+                 "    for (int it = 0; it < 0; ++it) {"),)
+K5_DIAG = {
+    "diag: no epilogue": K5_NO_EPILOGUE,
+    "diag: no products (zero sums)": K5_NO_MMA,
+    "diag: no unpack, no epilogue": (*K5_NO_UNPACK, *K5_NO_EPILOGUE),
+    "diag: ring only": (*K5_NO_UNPACK, *K5_NO_EPILOGUE, *K5_NO_MMA),
+}
+K5_FORMS = {**K5_VARIANTS, **K5_DIAG}
+
 
 def build_variant(name: str, edits: tuple) -> str:
     """``csrc/<name>.cu`` with each edit made in turn (its text must
@@ -473,8 +523,8 @@ def scan_launch(torch, lib, nd, h, v, k: int, bound: int):
 
 def main() -> int:
     import torch
-    parts = sys.argv[1:] or ["k4", "k3", "mma"]
-    if not set(parts) <= {"k4", "k3", "mma"}:
+    parts = sys.argv[1:] or ["k4", "k3", "mma", "k5"]
+    if not set(parts) <= {"k4", "k3", "mma", "k5"}:
         print(f"chip_tune: unknown parts {parts}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -484,15 +534,18 @@ def main() -> int:
     import chip_smoke
     from cbird_tpu_torch.ops import band_count as bc
     from cbird_tpu_torch.ops import count_below_mma as cm
+    from cbird_tpu_torch.ops import hamming_lanes as hl
     from cbird_tpu_torch.ops import hamming_topk as tk
     print(chip_smoke.smi(), flush=True)
     s = chip_smoke.Smoke(torch)
     jobs = ([("hamming_topk", v) for v in K4_VARIANTS] * ("k4" in parts)
             + [("band_count", v) for v in K3_VARIANTS] * ("k3" in parts)
             + [("count_below_mma", v) for v in MMA_FORMS]
-            * ("mma" in parts))
+            * ("mma" in parts)
+            + [("hamming_lanes_topk", v) for v in K5_FORMS] * ("k5" in parts))
     edits = {"hamming_topk": k4_edits, "band_count": k3_edits,
-             "count_below_mma": MMA_FORMS.get}
+             "count_below_mma": MMA_FORMS.get,
+             "hamming_lanes_topk": K5_FORMS.get}
     def build(job):
         try:
             return build_variant(job[0], edits[job[0]](job[1]))
@@ -507,6 +560,8 @@ def main() -> int:
         if path is None:
             if name == "count_below_mma":
                 MMA_FORMS.pop(v, None)
+            if name == "hamming_lanes_topk":
+                K5_FORMS.pop(v, None)
             continue
         lib = ctypes.CDLL(path)
         if name == "hamming_topk":
@@ -516,9 +571,12 @@ def main() -> int:
             lib.cbird_band_counts.argtypes = bc._COMMON + [ctypes.c_void_p,
                                                            ctypes.c_void_p]
             lib.cbird_band_counts.restype = ctypes.c_int
-        else:
+        elif name == "count_below_mma":
             lib.cbird_count_below_mma.argtypes = cm._ARGTYPES
             lib.cbird_count_below_mma.restype = ctypes.c_int
+        else:
+            lib.cbird_lanes_topk.argtypes = hl._ARGS
+            lib.cbird_lanes_topk.restype = ctypes.c_int
         lib.cbird_error_string.argtypes = [ctypes.c_int]
         lib.cbird_error_string.restype = ctypes.c_char_p
         libs[(name, v)] = lib
@@ -529,7 +587,72 @@ def main() -> int:
         ok &= tune_k3(torch, s, libs)
     if "mma" in parts:
         ok &= tune_mma(torch, s, libs)
+    if "k5" in parts:
+        ok &= tune_k5(torch, s, libs)
     return 0 if ok else 1
+
+
+def tune_k5(torch, s, libs) -> bool:
+    """K5's forms against each other (module docstring), on operands made
+    as chip_smoke's k5_kernels makes its timed ones."""
+    import chip_smoke
+    from cbird_tpu_torch import _build
+    from cbird_tpu_torch.ops import hamming_lanes as hl
+    rng = np.random.default_rng(chip_smoke.SEED + 10)
+    t, q, k = 1 << 20, 6400, 10
+    hay = torch.from_numpy(rng.integers(
+        -2**63, 2**63, size=(t, 4), dtype=np.int64)).cuda()
+    valid = torch.from_numpy(rng.random(t) > 0.01).cuda()
+    nd = hay[torch.from_numpy(rng.integers(0, t, q)).cuda()]
+    nd[:, 2] ^= 0x10101
+    nd = nd.contiguous()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    xc, chunk = hl.tc_plan(q, t, sms)
+    scratch = torch.empty(xc * hl.list_size(k) * q, dtype=torch.int64,
+                          device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    ok = True
+    forms = list(K5_FORMS)  # less those the card refuses
+    times = {m: {} for m in forms}
+    for bound in (25, hl.BINS):
+        want = hl.hamming_lanes_topk_plain(nd, hay, valid, k, bound)
+        outs = {m: (torch.empty((q, k), dtype=torch.int32, device="cuda"),
+                    torch.empty((q, k), dtype=torch.int32, device="cuda"))
+                for m in forms}
+
+        def launch(m):
+            lib, (d, r) = libs[("hamming_lanes_topk", m)], outs[m]
+            return lambda: _build.check(lib, lib.cbird_lanes_topk(
+                nd.data_ptr(), q, hay.data_ptr(), valid.data_ptr(), t, k,
+                bound, xc, chunk, scratch.data_ptr(), d.data_ptr(),
+                r.data_ptr(), stream), "lanes_topk")
+        timed = [m for m in forms if bound == 25 or m in K5_VARIANTS]
+        for m in list(timed):
+            try:
+                launch(m)()
+                torch.cuda.synchronize()
+            except RuntimeError as e:  # a form the card refuses
+                print(f"chip_tune: K5 {m}: {e}", file=sys.stderr)
+                ok = False
+                timed.remove(m)
+                forms.remove(m)
+                continue
+            if m in K5_VARIANTS and not (
+                    torch.equal(outs[m][0], want[0])
+                    and torch.equal(outs[m][1], want[1])):
+                print(f"chip_tune: K5 {m} differs at bound {bound}",
+                      file=sys.stderr)
+                ok = False
+        for _ in range(2):
+            for m in timed:
+                times[m].setdefault(f"bound {bound}", []).append(
+                    s.event_ms(launch(m), 10))
+    for m in forms:
+        print(json.dumps({"kernel": "K5", "form": m,
+                          "checked": m in K5_VARIANTS,
+                          "shape": f"Q={q} T=2^20 k={k}", "ms": times[m]}),
+              flush=True)
+    return ok
 
 
 def tune_mma(torch, s, libs) -> bool:
