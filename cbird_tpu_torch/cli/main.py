@@ -11,8 +11,8 @@ command line).
 The port's ``Engine`` runs behind it, and ``-about`` reports torch and
 the CUDA device.  Verbs that need a module the port does not have yet
 (the template matcher, the quality score, the grid split, the browser and
-the query server), ``-p.alg color``, and ``-p.tm`` fail with "not ported
-yet" and exit code 2.
+the query server) and ``-p.tm`` fail with "not ported yet" and exit
+code 2.
 
 The device is CUDA unless ``CBIRD_TORCH_DEVICE=cpu`` selects the CPU.
 Run as ``cbird-torch ...`` or ``python -m cbird_tpu_torch.cli.main ...``.
@@ -28,7 +28,7 @@ import sys
 import torch
 
 from .. import __version__
-from ..host.engine import PORTED_ALGOS, Engine
+from ..host.engine import Engine
 from ..host.scanner import NotPortedError
 from ..params import IndexParams, ParamError, SearchParams
 from ..store.media import Media, group_by, sort_group_list
@@ -159,11 +159,10 @@ _KNOWN_VERBS = [
 
 
 # verbs whose reference implementation needs a module the port does not
-# have yet (the template matcher, the quality score, the grid split, the
-# browser, the query server) or the color algorithm
+# have yet (the quality score, the grid split, the browser, the query
+# server; -verify waits with them, queue 1 of ROADMAP.md)
 NOT_PORTED = {
-    "-browse", "-serve", "-verify", "-merge", "-select-grid",
-    "-qualityscore", "-test-image-loader", "-test-image-search",
+    "-browse", "-serve", "-verify", "-select-grid", "-qualityscore",
 }
 
 
@@ -265,10 +264,6 @@ class Cli:
 
         if a.startswith("-p."):
             self.search.set_param(a[3:], self._need(args, i, "a value"))
-            if self.search.algo not in PORTED_ALGOS:
-                raise NotPortedError(f"{a} {args[i + 1]}: not ported yet "
-                                     "(only -p.alg dct, fdct, orb and video "
-                                     "are)")
             if self.search.templateMatch:
                 raise NotPortedError("-p.tm is not ported yet")
             return i + 2
@@ -612,6 +607,12 @@ complete -F _cbird_complete cbird""")
         if a == "-sort-similar":
             self._sort_similar()
             return i + 1
+        if a == "-merge":
+            sel_a = self._need(args, i, "two selectors")
+            if i + 2 >= len(args):
+                raise ParamError("-merge requires two selectors")
+            self._merge(sel_a, args[i + 2])
+            return i + 3
         if a == "-first-sibling":
             seen_dirs = set()
             kept = []
@@ -665,6 +666,22 @@ complete -F _cbird_complete cbird""")
 
         if a == "-test-update":
             self._test_update()
+            return i + 1
+        if a == "-test-image-loader":
+            f = self._need(args, i, "an image file")
+            import time
+            from ..host.scanner import Scanner
+            sc = Scanner(self.index, device=self._device)
+            t0 = time.monotonic()
+            d = sc.decode_image(os.path.abspath(f), want_color=True)
+            dt = (time.monotonic() - t0) * 1000
+            if d.error:
+                raise ParamError(f"decode failed: {d.error}")
+            print(f"{f}: {d.width}x{d.height} -> gray {d.gray.shape[1]}x"
+                  f"{d.gray.shape[0]} md5={d.md5} {dt:.1f} ms")
+            return i + 2
+        if a == "-test-image-search":
+            self._test_image_search()
             return i + 1
         if a in ("-test-video-decoder", "-test-video"):
             f = self._need(args, i, "a video file")
@@ -869,6 +886,94 @@ complete -F _cbird_complete cbird""")
             ordered.append(items.pop(best))
         self.selection = ordered
         self.result = [ordered]
+
+    def _test_image_search(self) -> None:
+        """Self-recall harness (reference -test-image-search): re-decode
+        and re-process every selected image as an unindexed needle, query
+        each of dct, fdct and orb, and report hit rate and score / rank
+        statistics.  A 100% hit rate means the decode -> hash -> search
+        path reproduces the index bit for bit."""
+        eng = self.engine()
+        items = [m for m in (self.selection or eng.db.all_media())
+                 if m.type == Media.TypeImage]
+        if not items:
+            warn("test-image-search: no image selection")
+            return
+        print("| algo | hit | miss | miss% | score avg/min/max | rank avg/max |")
+        failures = 0
+        for algo in (0, 1, 2):
+            sp = self.search.copy()
+            sp.algo = algo
+            hit = miss = 0
+            scores: list[int] = []
+            ranks: list[int] = []
+            for m in items:
+                fresh = eng.scanner.process_image_file(m.path, 1 << algo)
+                if fresh is None:
+                    miss += 1
+                    continue
+                matches = eng.query(fresh, sp)
+                rank = next((r for r, x in enumerate(matches)
+                             if x.id == m.id or x.path == m.path), -1)
+                if rank < 0:
+                    miss += 1
+                else:
+                    hit += 1
+                    scores.append(matches[rank].score)
+                    ranks.append(rank)
+            total = hit + miss
+            avg_s = sum(scores) / hit if hit else 0
+            avg_r = sum(ranks) / hit if hit else 0
+            print(f"| {('dct', 'fdct', 'orb')[algo]:>4} | {hit:3d} | {miss:3d} "
+                  f"| {miss * 100.0 / total:5.1f} "
+                  f"| {avg_s:.2f}/{min(scores, default=0)}/{max(scores, default=0)} "
+                  f"| {avg_r:.2f}/{max(ranks, default=0)} |")
+            failures += miss
+        if failures:
+            warn(f"test-image-search: {failures} misses")
+
+    def _merge(self, sel_a: str, sel_b: str) -> None:
+        """Merge selection B into (sorted) selection A by similarity
+        (reference -merge): each B item is searched against the merged
+        list with per-algo escalation (accept when the best score beats
+        the algo's threshold: dct 12, fdct/orb 1000, color always), then
+        inserted next to its closest match; before/after is decided by dct
+        distance to the neighbors."""
+        from ..ops.ref_numpy import hamming64
+        merged = self._select(sel_a)
+        set_b = self._select(sel_b)
+        thresholds = (12, 1000, 1000, 1 << 31)
+        eng = self.engine()
+        unmatched = 0
+        for b in set_b:
+            best = None
+            for algo in range(4):
+                sp = self.search.copy()
+                sp.algo = algo
+                sp.maxMatches = 2
+                sp.set = merged + [b]
+                sp.inSet = True
+                matches = [m for m in eng.query(b, sp)
+                           if any(x.path == m.path for x in merged)]
+                if matches and matches[0].score < thresholds[algo]:
+                    best = matches[0]
+                    break
+            if best is None:
+                warn(f"merge: no match: {b.path}")
+                unmatched += 1
+                continue
+            pos = next(j for j, x in enumerate(merged) if x.path == best.path)
+            if 0 < pos < len(merged) - 1:
+                nb = int(b.dctHash or 0)
+                before = hamming64(nb, int(merged[pos - 1].dctHash or 0))
+                after = hamming64(nb, int(merged[pos + 1].dctHash or 0))
+                if after < before:
+                    pos += 1
+            merged.insert(pos, b)
+        if unmatched:
+            warn(f"merge: {unmatched} items could not be placed")
+        self.selection = merged
+        self.result = [merged] if merged else []
 
     def _video_thumbnail(self, path: str, frame_no: int) -> None:
         """Save one decoded frame as <name>-frame<N>.png, and, when an

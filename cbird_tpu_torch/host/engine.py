@@ -1,13 +1,11 @@
 """Engine — composition root wiring Scanner -> Database -> the indexes.
 
-Port of ``cbird_tpu/host/engine.py`` for the dct, fdct, orb and video
-algorithms.  It registers the port's ``DctHashIndex``,
-``DctFeaturesIndex``, ``CvFeaturesIndex`` and ``DctVideoIndex``.  The JAX
-package narrows ``-i.algos`` (default: all five) to the registered
-indexes without a word; here ``-update`` warns that color is not ported
-yet, and a query with it raises ``NotPortedError``.  Videos decode on
-worker threads and hash on the engine's device (``host/video.py``), and
-commit one by one in completion order.
+Port of ``cbird_tpu/host/engine.py`` for every algorithm: it registers
+the port's ``DctHashIndex``, ``ColorDescIndex``, ``DctFeaturesIndex``,
+``CvFeaturesIndex`` and ``DctVideoIndex``.  Videos decode on worker
+threads and hash on the engine's device (``host/video.py``), and commit
+one by one in completion order.  The template matcher is not ported yet:
+a query with it raises ``NotPortedError``.
 """
 
 from __future__ import annotations
@@ -19,10 +17,12 @@ from typing import Callable
 import numpy as np
 
 from ..device import resolve
+from ..index.color_desc_index import ColorDescIndex
 from ..index.cv_features_index import CvFeaturesIndex
 from ..index.dct_features_index import DctFeaturesIndex
 from ..index.dct_hash_index import DctHashIndex
 from ..index.dct_video_index import DctVideoIndex
+from ..ops.color import create_descriptors
 from ..ops.orb import extract_features_batch
 from ..params import IndexParams, SearchParams, TYPE_IMAGE, TYPE_VIDEO
 from ..store.database import Database
@@ -37,9 +37,8 @@ DCT_MASK = 1 << SearchParams.ALGO_DCT
 VIDEO_MASK = 1 << SearchParams.ALGO_VIDEO
 COLOR_MASK = 1 << SearchParams.ALGO_COLOR
 FEATURE_ALGOS = (SearchParams.ALGO_DCT_FEATURES, SearchParams.ALGO_CV_FEATURES)
-IMAGE_MASK = (DCT_MASK | (1 << SearchParams.ALGO_DCT_FEATURES)
+IMAGE_MASK = (DCT_MASK | COLOR_MASK | (1 << SearchParams.ALGO_DCT_FEATURES)
               | (1 << SearchParams.ALGO_CV_FEATURES))
-PORTED_ALGOS = (SearchParams.ALGO_DCT, *FEATURE_ALGOS, SearchParams.ALGO_VIDEO)
 
 
 class Engine:
@@ -51,6 +50,7 @@ class Engine:
         self.scanner = Scanner(self.params, device=self.device)
         self._stop_requested = False
         self.db.add_index(DctHashIndex(self.device))
+        self.db.add_index(ColorDescIndex(self.device))
         self.db.add_index(DctFeaturesIndex(self.device))
         self.db.add_index(CvFeaturesIndex(self.device))
         self.db.add_index(DctVideoIndex(self.device))
@@ -68,10 +68,6 @@ class Engine:
                 modified_kept}: the modified files whose old rows a
                 stopped update kept because it did not re-add them"""
         p = self.params
-        if p.algos & COLOR_MASK:
-            warn("color is not ported yet; indexing dct, fdct, orb and "
-                 "video only")
-            p.algos &= IMAGE_MASK | VIDEO_MASK
         root = os.path.join(self.db.path(), subdir) if subdir else self.db.path()
 
         self._verify_vdx_files()
@@ -208,11 +204,8 @@ class Engine:
 
     # ---- query -----------------------------------------------------------
     def query(self, needle: Media, params: SearchParams) -> MediaGroup:
-        """Single-needle dct, fdct, orb or video search incl. on-the-fly
-        processing of an unindexed needle and mirror variants (reference
-        Engine::query)."""
-        if params.algo not in PORTED_ALGOS:
-            raise NotPortedError(f"-p.alg {params.algo} is not ported yet")
+        """Single-needle search incl. on-the-fly processing of an
+        unindexed needle and mirror variants (reference Engine::query)."""
         if params.templateMatch:
             raise NotPortedError("the template matcher is not ported yet")
         if needle.path and params.algo != SearchParams.ALGO_VIDEO \
@@ -232,8 +225,8 @@ class Engine:
                     processed = process_video(needle.path, self.params,
                                               device=self.device)
                 else:
-                    algos = (1 << params.algo if params.algo in FEATURE_ALGOS
-                             else DCT_MASK)
+                    algos = (DCT_MASK if params.algo == SearchParams.ALGO_VIDEO
+                             else 1 << params.algo)
                     processed = self.scanner.process_image_file(
                         needle.path, algos,
                         crop=True if params.autoCrop else None)
@@ -243,7 +236,7 @@ class Engine:
                 needle = processed
 
         matches = self.db.similar_to(needle, params)
-        if params.mirrorMask:
+        if params.mirrorMask and params.algo != SearchParams.ALGO_COLOR:
             matches += self._mirror_query(needle, params)
             seen = set()
             uniq = []
@@ -301,7 +294,10 @@ class Engine:
 
     def _mirror_query(self, needle: Media, params: SearchParams) -> MediaGroup:
         """Re-process flipped variants of the needle (dct re-hashes, fdct
-        and orb re-extract features) and search each."""
+        and orb re-extract features) and search each; color needs no
+        mirror pass (the histogram is orientation-invariant)."""
+        if params.algo == SearchParams.ALGO_COLOR:
+            return []
         d = self.scanner.decode_image(needle.path)
         if d.gray is None:
             return []
@@ -324,8 +320,18 @@ class Engine:
                              width: int, height: int,
                              params: SearchParams) -> list[Media]:
         """Image needles of ``params.algo`` from grayscale images (a video
-        needle's frames, the flips of a mirror query): dct hashes, or
-        fdct keypoint hashes, or orb descriptors."""
+        needle's frames, the flips of a mirror query): dct hashes, fdct
+        keypoint hashes, orb descriptors, or color descriptors of the
+        frames stacked to RGB."""
+        if params.algo == SearchParams.ALGO_COLOR:
+            needles = []
+            rgb = [np.stack([g, g, g], axis=-1) for g in grays]
+            for desc in create_descriptors(rgb, device=self.device):
+                m = Media(needle.path, TYPE_IMAGE, width, height, needle.md5,
+                          id=needle.id)
+                m.colorDescriptor = desc
+                needles.append(m)
+            return needles
         if params.algo in FEATURE_ALGOS:
             want_desc = params.algo == SearchParams.ALGO_CV_FEATURES
             needles = []

@@ -5,9 +5,10 @@ host walks the tree (include/exclude globs, zip members), decodes and
 digests images on worker threads, and the device hashes fixed-size
 batches of grayscale canvases (autocrop + DCT, ``ops/dct_hash.py``) and,
 for fdct and orb, extracts ORB keypoints, descriptors and keypoint hashes
-(``ops/orb.py``).  The walk, decode, archive handling and the
-longest-job-first video queue are those of the reference module (videos
-decode in ``host/video.py``); the color descriptor is not ported yet.
+(``ops/orb.py``), and for color the Luv k-means descriptors of <= 256 px
+RGB thumbnails (``ops/color.py``).  The walk, decode, archive handling
+and the longest-job-first video queue are those of the reference module
+(videos decode in ``host/video.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 from PIL import Image, ImageOps
 
+from ..ops.color import create_descriptors
 from ..ops.dct_hash import DctHasher
 from ..ops.orb import extract_features_batch
 from ..params import IndexParams, SearchParams, TYPE_IMAGE, TYPE_VIDEO
@@ -45,8 +47,6 @@ ERROR_JPEG_TRUNCATED = "truncated jpeg"
 ERROR_DUP_INODE = "duplicate inode"
 ERROR_ZIP = "zip error"
 
-# the color descriptor is not ported yet
-UNPORTED_IMAGE_ALGOS = 1 << SearchParams.ALGO_COLOR
 FEATURE_MASK = ((1 << SearchParams.ALGO_DCT_FEATURES)
                 | (1 << SearchParams.ALGO_CV_FEATURES))
 
@@ -63,6 +63,7 @@ class DecodedImage:
     height: int
     md5: str
     error: Optional[str] = None
+    rgb: Optional[np.ndarray] = None  # <= 256 px nearest thumbnail (color)
 
 
 @dataclasses.dataclass
@@ -266,10 +267,12 @@ class Scanner:
             self.set_error(path, ERROR_ZIP)
 
     # ---- image decode ----------------------------------------------------
-    def decode_image(self, path: str) -> DecodedImage:
+    def decode_image(self, path: str, want_color: bool = False) -> DecodedImage:
         """Decode + digest one image: md5 over the jpeg scan payload,
         scaled jpeg decode targeting [rsize, 1.5*rsize] on the longest
-        side, EXIF auto-orientation."""
+        side, EXIF auto-orientation; with ``want_color`` also the RGB
+        thumbnail (<= 256 px, nearest) of the color descriptor, grey
+        images too."""
         rsize = self.params.resizeLongestSide
         try:
             data = read_bytes(path)
@@ -288,6 +291,11 @@ class Scanner:
             if is_jpeg:
                 img.draft(None, (rsize, rsize))  # libjpeg scaled idct
             img = ImageOps.exif_transpose(img)
+            rgb = None
+            if want_color:
+                c = img.convert("RGB")
+                c.thumbnail((256, 256), Image.NEAREST)
+                rgb = np.asarray(c)
             gray = img.convert("L")
             long_side = max(gray.size)
             if long_side > rsize * 1.5:
@@ -297,7 +305,7 @@ class Scanner:
             arr = np.asarray(gray)
             if arr.ndim != 2 or arr.size == 0:
                 raise ValueError("bad decode")
-            return DecodedImage(path, arr, width, height, digest)
+            return DecodedImage(path, arr, width, height, digest, rgb=rgb)
         except Exception:  # any decoder failure is a typed per-file error
             self.set_error(path, ERROR_LOAD)
             return DecodedImage(path, None, -1, -1, digest, ERROR_LOAD)
@@ -309,16 +317,16 @@ class Scanner:
         """Decode on host threads, hash in device batches; yields Media in
         completion order of each device batch."""
         p = self.params
-        if p.algos & UNPORTED_IMAGE_ALGOS:
-            raise NotPortedError("color descriptors are not ported yet")
         want_dct = bool(p.algos & (1 << SearchParams.ALGO_DCT))
         want_feat = bool(p.algos & FEATURE_MASK)
+        want_color = bool(p.algos & (1 << SearchParams.ALGO_COLOR))
         workers = p.indexThreads or min(8, (os.cpu_count() or 1) * 2)
         batch = self._hasher.batch
         done = 0
         with cf.ThreadPoolExecutor(max_workers=workers) as pool:
             def submit_chunk(chunk):
-                return [pool.submit(self.decode_image, pp) for pp in chunk]
+                return [pool.submit(self.decode_image, pp, want_color)
+                        for pp in chunk]
 
             # double-buffer: batch n+1 decodes on host threads while the
             # device hashes batch n
@@ -340,6 +348,12 @@ class Scanner:
                     Media(d.path, TYPE_IMAGE, d.width, d.height, d.md5,
                           int(hashes[i]) if want_dct else 0)
                     for i, d in enumerate(good)]
+                if good and want_color:
+                    with profile_stage(f"color descriptors x{len(good)}"):
+                        descs = create_descriptors(
+                            [d.rgb for d in good], device=self._hasher.device)
+                    for m, desc in zip(media_batch, descs):
+                        m.colorDescriptor = desc
                 if good and want_feat:
                     orb = SearchParams.ALGO_CV_FEATURES
                     fdct = SearchParams.ALGO_DCT_FEATURES

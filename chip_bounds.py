@@ -10,7 +10,8 @@ compiler made of both and what the card sustains:
 
   sass     cuobjdump -sass of the count kernels (K1, K1-mma), the top-k
            scan (K4), the band counts (K3) and the 256-bit k-nearest
-           search (K5 and its popcount form) into OUT_DIR/<name>.sass,
+           search (K5 and its popcount form) and the color scores (K6)
+           into OUT_DIR/<name>.sass,
            and per loop (a backward branch) the opcode counts of its body;
            for the wgmma kernels (K1-mma, K2-mma, K5) their main loop's
            warpgroup MMAs (QGMMA for e4m3, IGMMA for s8), moves, shifts,
@@ -32,7 +33,8 @@ compiler made of both and what the card sustains:
            product's sign bits after it, as IGMMA per clock per SM and
            int8 TOPS; and the e4m3 wgmma with f16 sums (K1-mma's and K5's
            products) chained on two warpgroups, as QGMMA per clock per SM
-           and TOPS
+           and TOPS; and K6's color-pair step (3 subtracts, 3 multiplies,
+           2 adds unfused and a min) as FP32 instructions a clock per SM
   K1       the popcount K1 at Q=16384, N=2^21, t=5 (the K1 variants'
            shape, on operands made as chip_smoke's): 20 launches after
            K1-mma's two forms, as chip_smoke times them, and 100 alone,
@@ -306,6 +308,40 @@ __global__ void __launch_bounds__(128 * WGS, 1) wgmma_f16_probe(
     tb[0] = c0; tb[1] = clock64(); tb[2] = g0; tb[3] = globaltimer();
   }
 }
+// K6's color-pair step (color_scores.cu): 3 subtracts, 3 multiplies, 2
+// adds, unfused, and a min, on CHAINS independent minima a thread
+__global__ void __launch_bounds__(256) k6_step_probe(
+    unsigned* out, unsigned long long* times, int iters, unsigned d) {
+  const unsigned long long c0 = clock64(), g0 = globaltimer();
+  float a[CHAINS], m[CHAINS];
+#pragma unroll
+  for (int j = 0; j < CHAINS; ++j) {
+    a[j] = __uint_as_float(0x3f800000u | ((threadIdx.x * 977u + j) & 0xffffu));
+    m[j] = 3.0e38f;
+  }
+  float hl = __uint_as_float(0x3f000000u | (d & 0xffffu));
+#pragma unroll 1
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int j = 0; j < CHAINS; ++j) {
+      const float dl = __fsub_rn(a[j], hl);
+      const float du = __fsub_rn(a[j], m[j]);
+      const float dv = __fsub_rn(hl, m[j]);
+      m[j] = fminf(m[j], __fadd_rn(__fadd_rn(__fmul_rn(dl, dl),
+                                             __fmul_rn(du, du)),
+                                   __fmul_rn(dv, dv)));
+    }
+    hl = __fadd_rn(hl, 1.0f);
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < CHAINS; ++j) s += m[j];
+  if (s == 1.2345f) out[0] = 1;  // keeps the chains live
+  if (threadIdx.x == 0) {
+    unsigned long long* tb = times + 4 * blockIdx.x;
+    tb[0] = c0; tb[1] = clock64(); tb[2] = g0; tb[3] = globaltimer();
+  }
+}
 extern "C" int cbird_probe(int op, void* out, void* times, int blocks,
                            int iters, unsigned d, unsigned lim,
                            void* stream) {
@@ -328,12 +364,15 @@ extern "C" int cbird_probe(int op, void* out, void* times, int blocks,
     wgmma_probe<1, false><<<blocks, 128, 0, s>>>(o, t, iters);
   else if (op == 7)
     wgmma_probe<2, true><<<blocks, 256, 0, s>>>(o, t, iters);
-  else
+  else if (op == 8)
     wgmma_f16_probe<2><<<blocks, 256, 0, s>>>(o, t, iters);
+  else
+    k6_step_probe<<<blocks, 256, 0, s>>>(o, t, iters, d);
   return (int)cudaGetLastError();
 }
 """
 CHAINS, THREADS = 8, 256
+K6_STEP_OP = 9  # K6's color-pair step: 9 FP32 instructions a step
 INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
 TARGET = re.compile(r"BRA\s+(?:`\()?(0x[0-9a-f]+|\.L_x_\d+)")
 LABEL = re.compile(r"^\s*(\.L_x_\d+):")
@@ -539,7 +578,7 @@ def main() -> int:
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     sass = {}
     kernels = ("count_below", "count_below_mma", "hamming_topk", "band_count",
-               "hamming_lanes_topk")
+               "hamming_lanes_topk", "color_scores")
     for name, path in [(k, _build.build(k)) for k in kernels] + [("probe",
                                                                   so)]:
         text = subprocess.run([cuobjdump, "-sass", path], check=True,
@@ -626,6 +665,24 @@ def main() -> int:
         "QGMMA_per_clk_sm_at_clock64": n / (
             ms * 1e-3 * sms * clk["clock64_mhz"]["median"] * 1e6),
         "e4m3_f16_tops": n * 64 * 256 * 32 * 2 / (ms * 1e-3) / 1e12,
+        "loop_opcodes": body["opcodes"]}), flush=True)
+
+    # K6's color-pair step (FP32 subtracts, multiplies, adds and a min):
+    # the FP32 instructions it sustains a clock per SM, and the loop's
+    # opcodes (chip_smoke.py bounds K6 at the lower of this and 128)
+    iters = 1 << 16
+    ms, clk = timed_ms(torch, lambda: pr.run(K6_STEP_OP, iters), 5)
+    clk["clock64_mhz"] = pr.clock64_mhz()
+    steps = pr.blocks * THREADS * CHAINS * iters
+    fn = next(f for f in sass if "k6_step_probe" in f)
+    body = max(sass[fn], key=lambda lp: lp["instructions"],
+               default={"opcodes": {}})
+    print(json.dumps({
+        "probe": "k6_color_pair_step", "ms": ms, "clock": clk,
+        "fp32_per_clk_sm_at_max": 9 * steps / (ms * 1e-3 * sms * max_mhz
+                                               * 1e6),
+        "fp32_per_clk_sm_at_clock64": 9 * steps / (
+            ms * 1e-3 * sms * clk["clock64_mhz"]["median"] * 1e6),
         "loop_opcodes": body["opcodes"]}), flush=True)
 
     # the popcount K1 at the K1 variants' shape, on operands made as

@@ -32,6 +32,13 @@ limit come first.
                         find_batch of 16 needle images (K5)
   orb similar 2^18      the same store: find_batch of the images of its
                         first 2^18 rows
+  cdesc 256             create_descriptors (canvas 256) over the first 256
+                        of chip_smoke's colored images (a trace of all
+                        1024 holds too many events to finish)
+  color similar-to 64   chip_smoke's color store (2^20 descriptors):
+                        find_batch of its 64 planted sources (K6)
+  color similar 2^16    the first 2^16 rows of that store: find_all (the
+                        count-bucketed self-search)
 
 Exits non-zero when no CUDA device is visible.
 """
@@ -51,6 +58,14 @@ import chip_smoke
 
 T = chip_smoke.T
 WARM_S = 1.0  # the traced warm-up step's least length
+# the configurations after the color ones (they share the 10M-row store's
+# random draws, so it is made for any of them)
+HASH_CONFIGS = ("search q1 10M", "search q64 10M", "search q1024 10M",
+                "self 10M ph", "self 1M triangle", "self 1M ph", "hash 1024",
+                "feat 1024", "fdct similar 2^22", "fdct similar-to 16",
+                "orb similar-to 16", "orb similar 2^18",
+                "video (a) similar 4096x512",
+                "video (b) similar-to 16384 frames")
 
 
 def trace(torch, fn, reps: int) -> dict:
@@ -154,6 +169,36 @@ def feature_configs(torch, s, want, show):
         torch.cuda.empty_cache()
 
 
+def color_configs(torch, s, want, show):
+    """The color configurations, on chip_smoke's data."""
+    from cbird_tpu_torch.ops import color
+    from cbird_tpu_torch.params import SearchParams
+    sp = SearchParams()
+    if want("cdesc 256"):
+        imgs = s.color_images(chip_smoke.CDESC_IMAGES,
+                              np.random.default_rng(chip_smoke.SEED + 31))
+        imgs = imgs[:256]
+        show("cdesc 256", trace(
+            torch, lambda: color.create_descriptors(imgs, device=s.dev), 1))
+        del imgs
+    if not want("color similar-to 64", "color similar 2^16"):
+        return
+    descs, ids, groups = s.color_store(
+        np.random.default_rng(chip_smoke.SEED + 32))
+    if want("color similar-to 64"):
+        idx = s.color_index(descs, ids, s.dev)
+        needles = s.color_needles(descs, groups)
+        show("color similar-to 64", trace(
+            torch, lambda: idx.find_batch(needles, sp), 3))
+        del idx
+    if want("color similar 2^16"):
+        n = chip_smoke.COLOR_SIMILAR_ROWS
+        idx = s.color_index(descs[:n], ids[:n], s.dev)
+        show("color similar 2^16", trace(torch, lambda: idx.find_all(sp), 1))
+        del idx
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     names = sys.argv[1:]
@@ -180,6 +225,10 @@ def main() -> int:
 
     def show(name, nums):
         print(json.dumps({"config": name, **nums}), flush=True)
+
+    color_configs(torch, s, want, show)
+    if not want(*HASH_CONFIGS):
+        return 0
 
     big, needles = store(10_000_000)  # made always: the same rng draws
     for q in (1, 64, 1024):

@@ -73,6 +73,23 @@ Phases, each printed on its own line (pass/fail, numbers, wall ms, card):
            cbird-torch -create -update, then -p.alg fdct and orb -similar
            -json and -similar-to; the groups equal the same CLI run with
            CBIRD_TORCH_DEVICE=cpu in a subprocess (its own -update)
+  cdesc    create_descriptors (canvas 256) over 1024 seeded RGB images of
+           64-256 px with colored patches: images/s and the histogram of
+           numColors; 16 of them also on the CPU, the descriptors equal
+           (each differing entry printed, card against CPU)
+  color    a ColorDescIndex of 2^20 descriptors (numColors drawn from
+           cdesc's histogram) with 64 planted groups of 4 near copies
+           (Luv within 2 quantization steps) in its first 2^16 rows:
+           find_batch of the 64 sources over all 2^20 rows (-similar-to,
+           K6) and find_all over the first 2^16 rows (the count-bucketed
+           -similar) find every group; the scan path
+           (CBIRD_COLOR_BUCKETS=off) equals the bucketed one over 2^14
+           rows
+  ccli     12 colored sources x (source, half size, mirrored, jpeg q50)
+           as files: cbird-torch -create -i.algos dct+color -update,
+           -p.alg color -similar (each source's four variants joined) and
+           -similar-to of a mirrored copy, -merge, -test-image-search and
+           -test-image-loader, each exit 0
 
 The kernels phase also holds K5 (the 256-bit k-nearest search on the
 tensor cores) and K5-popc (its popcount form, the yardstick) against
@@ -82,10 +99,21 @@ none) and times both in turns at K5_TIMED: Q=6400 x T=2^20, k=10, bound
 25 and unbounded, and the orb -similar launch, 8192 x 2^20 at bound 25,
 beside two bounds: tc_bound_ms, the function's (its +-1 product over
 K = 256 on the tensor cores, as K4's tc_bound_ms; K5's bound_ms), and
-K5-popc's bound_ms, that of its own form (8 POPC a pair).
+K5-popc's bound_ms, that of its own form (8 POPC a pair).  It holds K6
+(the chamfer color score) against its plain twin, bit for bit, at K6_Q x
+K6_C for both sides and the one-sided forms with a row window, and times
+it at K6_TIMED beside its plain twin and, as a yardstick, torch.cdist of
+the colors alone at a small shape; and the color top-k of 8 needles over a
+2^20-row store against the plain twin's, one needle with 101 rows tied at
+its best score across a chunk edge and the k boundary.  K6's bound counts the FP32
+instructions the data needs (3 subtracts, 3 multiplies, 2 adds and a min a
+color pair of each scored pair, over the side it takes; a sqrt, a compare
+and an add a color of that side) at FP32_PER_CLK a clock per SM, or at
+the rate chip_bounds.py's probe of that color-pair step sustains where it
+is lower.
 
-The main path is query, self, ph, video, vcli, cli, feat, fdct, orb and
-fcli: the launch
+The main path is query, self, ph, video, vcli, cli, feat, fdct, orb,
+fcli, cdesc, color and ccli: the launch
 counters are zeroed just before each of them and read just after; every
 kernel must have run there, but for the bf16 form of K1-mma and the
 popcount K1 and K2 (the yardstick of the tensor-core forms), which only
@@ -139,7 +167,8 @@ ALU_PER_CLK, INT32_PER_CLK = 64, 128
 TC_INT8_OPS_PER_S = 1979e12
 TC_BF16_OPS_PER_S = 989e12
 KERNELS = ("count_below", "count_below_mma", "hamming_topk", "band_count",
-           "hamming_lanes_topk")
+           "hamming_lanes_topk", "color_scores")
+FP32_PER_CLK = 128  # FP32 instructions issued per clock per SM (4 x 32)
 # K1-mma: checked thresholds; timed shapes (Q, N, t): the K1 variants'
 # experiments (epilogue and i16 at t=5, the bf16 sweep at t=6), the
 # triangle's tile at 1M rows, the 1024-needle gate (K1's row)
@@ -199,6 +228,21 @@ K5_Q = (1, 63, 65, 191, 192, 193, 513)
 K5_T = (1, 255, 256, 257, 8193, 16385, 1 << 20)
 K5_TIMED = (("6400_bound25", 6400, 25), ("6400_unbounded", 6400, 257),
             ("8192_bound25", 8192, 25))
+# the color phases: cdesc's images (CDESC_CPU of them also on the CPU);
+# the color store (2^20 descriptors, COLOR_GROUPS planted groups of 4 in
+# its first COLOR_SIMILAR_ROWS rows), -similar over those rows, the scan
+# path against the bucketed one over COLOR_SCAN_ROWS; K6's timed shape
+# (Q, C: chunks of 4096), its checked needle and row counts (around its
+# tiles of 32 needles and 128 rows) and the topk check's needles over the
+# whole store; ccli's sources (x 4 variants)
+CDESC_IMAGES, CDESC_CPU = 1024, 16
+COLOR_ROWS, COLOR_SIMILAR_ROWS, COLOR_SCAN_ROWS = 1 << 20, 1 << 16, 1 << 14
+COLOR_GROUPS = 64
+K6_TIMED = (1024, 1 << 18)
+K6_Q = (1, 31, 32, 33, 64)
+K6_C = (1, 127, 128, 129, 4097)
+K6_TOPK_NEEDLES = 8
+CCLI_SOURCES = 12
 # chip_bounds.py's probe library (the SM clock for the bounds)
 PROBE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                          "probes")
@@ -231,6 +275,7 @@ class Smoke:
         self.probe_so, self.probes = None, None
         self.bound_sites: list = []  # bounds set by finish_bounds
         from cbird_tpu_torch.ops import band_count as bc
+        from cbird_tpu_torch.ops import color_scores as cs
         from cbird_tpu_torch.ops import count_below as cb
         from cbird_tpu_torch.ops import count_below_mma as cm
         from cbird_tpu_torch.ops import hamming_lanes as hl
@@ -246,7 +291,8 @@ class Smoke:
                          "K4": (tk.hamming_topk, "launches"),
                          "K5": (hl.hamming_lanes_topk, "launches"),
                          "K5-popc": (hl.hamming_lanes_topk_popc,
-                                     "launches")}
+                                     "launches"),
+                         "K6": (cs.color_scores, "launches")}
 
     def launches(self) -> dict[str, int]:
         return {k: getattr(f, a) for k, (f, a) in self.counters.items()}
@@ -314,16 +360,19 @@ class Smoke:
     def bound(self, target: dict, key: str, by: str | None = None, *,
               nbytes: float, popc: float = 0, alu: float = 0,
               int_ops: float = 0, tc_ops: float = 0,
-              tc_rate: float = TC_INT8_OPS_PER_S):
+              tc_rate: float = TC_INT8_OPS_PER_S, fp32: float = 0,
+              fp32_rate: float = FP32_PER_CLK):
         """Sets ``target[key]`` to the least time (ms) the card could take
         to move ``nbytes`` and execute ``popc`` POPC, ``int_ops`` INT32
         instructions of which ``alu`` are compares or logic (the ALU pipe
-        only) and ``tc_ops`` tensor-core operations at ``tc_rate``, and
+        only), ``tc_ops`` tensor-core operations at ``tc_rate`` and ``fp32``
+        FP32 instructions at ``fp32_rate`` a clock per SM, and
         ``target[by]`` to which of the two bounds it.  finish_bounds sets
         it, at the highest SM clock the kernels phase read."""
         self.bound_sites.append((target, key, by, dict(
             nbytes=nbytes, popc=popc, alu=alu, int_ops=int_ops,
-            tc_ops=tc_ops, tc_rate=tc_rate)))
+            tc_ops=tc_ops, tc_rate=tc_rate, fp32=fp32,
+            fp32_rate=fp32_rate)))
 
     def finish_bounds(self):
         clk = self.clock_hz * SMS
@@ -331,7 +380,8 @@ class Smoke:
             by_ops = max(w["popc"] / (POPC_PER_CLK * clk),
                          w["alu"] / (ALU_PER_CLK * clk),
                          w["int_ops"] / (INT32_PER_CLK * clk),
-                         w["tc_ops"] / w["tc_rate"])
+                         w["tc_ops"] / w["tc_rate"],
+                         w["fp32"] / (w["fp32_rate"] * clk))
             by_bytes = w["nbytes"] / HBM_BYTES_PER_S
             target[key] = max(by_ops, by_bytes) * 1e3
             if by:
@@ -497,6 +547,7 @@ class Smoke:
         out.update(self.k3_kernels())
         out.update(self.mma_kernels())
         out.update(self.k5_kernels())
+        out.update(self.k6_kernels())
         self.sm_clock()
         self.finish_bounds()
         out["sm_clock64_mhz"] = self.clock64_mhz
@@ -589,12 +640,16 @@ class Smoke:
 
     @staticmethod
     def same(a, b, what: str = "kernel") -> float:
-        """@return the largest absolute difference of ``a`` and ``b``;
-        raises unless it is 0."""
+        """@return the largest absolute difference of ``a`` and ``b``
+        (floats in float64); raises unless it is 0."""
         if a.shape != b.shape:
             raise AssertionError(f"{what}: shape {tuple(a.shape)} against "
                                  f"{tuple(b.shape)}")
-        err = float((a.long() - b.long()).abs().max()) if a.numel() else 0.0
+        if a.is_floating_point():
+            a, b = a.double(), b.double()
+        else:
+            a, b = a.long(), b.long()
+        err = float((a - b).abs().max()) if a.numel() else 0.0
         if err:
             raise AssertionError(f"{what} disagrees with its reference "
                                  f"(max abs err {err})")
@@ -1073,6 +1128,7 @@ class Smoke:
 
     def self_phase(self):
         from cbird_tpu_torch.ops import band_count as bc
+        from cbird_tpu_torch.ops import color_scores as cs
         from cbird_tpu_torch.ops import count_below as cb
         from cbird_tpu_torch.ops import count_below_mma as cm
         from cbird_tpu_torch.ops import hamming_topk as tk
@@ -2205,6 +2261,397 @@ class Smoke:
             out["cpu_run_s"] = round(time.perf_counter() - t0, 1)
         return out
 
+    # ---- the color algorithm ---------------------------------------------
+    @staticmethod
+    def color_images(count: int, rng):
+        """Seeded RGB images of 64-256 px a side (``color_image``)."""
+        return [color_image(rng, int(rng.integers(64, 257)),
+                            int(rng.integers(64, 257)))
+                for _ in range(count)]
+
+    def color_store(self, rng, hist=None):
+        """The color phase's store: COLOR_ROWS descriptors with the planted
+        groups.  @return (descs, ids, groups)"""
+        descs = self.color_rows(COLOR_ROWS, rng, hist)
+        groups = self.color_groups(descs, rng)
+        return descs, np.arange(1, COLOR_ROWS + 1, dtype=np.uint32), groups
+
+    def color_rows(self, n: int, rng, hist=None):
+        """``n`` quantized color descriptors [n, 33, 4] uint16: random
+        colors, weights descending, numColors drawn from ``hist`` ({count:
+        images}, default mostly 31)."""
+        hist = hist or {31: 90, 30: 4, 29: 3, 28: 2, 27: 1}
+        counts = np.array(list(hist))
+        p = np.array([hist[c] for c in counts], np.float64)
+        descs = np.zeros((n, 33, 4), np.uint16)
+        descs[:, :32, :3] = rng.integers(0, 65536, (n, 32, 3),
+                                         dtype=np.uint16)
+        descs[:, :32, 3] = np.linspace(65535, 2000, 32).astype(np.uint16)
+        descs[:, 32, 0] = rng.choice(counts, n, p=p / p.sum())
+        return descs
+
+    def color_device(self, descs):
+        """Descriptors -> (colors [n, 32, 3] f32, counts [n] i32) on the card,
+        as PackedColorStore dequantizes them."""
+        from cbird_tpu_torch.ops.color import dequantize_luv
+        torch = self.torch
+        return (torch.from_numpy(dequantize_luv(descs[:, :32, :3])).to(
+            self.dev), torch.from_numpy(descs[:, 32, 0].astype(np.int32)).to(
+            self.dev))
+
+    @staticmethod
+    def k6_work(nn, hn, hv, side: str = "both"):
+        """The FP32 instructions K6's scored pairs need (3 subtracts, 3
+        multiplies, 2 adds and a min a color pair, over the counts; a sqrt,
+        a compare and an add a color of the side that drives the sum), from
+        the histograms of the needle and live row counts; bytes: each needle
+        (384 + 4), each row (384 + 4 + 1) and each [Q, C] score once."""
+        a = np.bincount(nn.cpu().numpy(), minlength=33).astype(np.float64)
+        hv = hv.cpu().numpy()
+        b = np.bincount(hn.cpu().numpy()[hv], minlength=33).astype(
+            np.float64)
+        ops = 0.0
+        for x in range(1, 33):
+            for y in range(1, 33):
+                if side == "both" and abs(x - y) > 2:
+                    continue
+                outer = max(x, y) if side == "both" else \
+                    (x if side == "ab" else y)
+                ops += a[x] * b[y] * (9 * x * y + 3 * outer)
+        q, c = len(nn), len(hn)
+        return dict(nbytes=388 * q + 389 * c + 4 * q * c, fp32=ops)
+
+    def k6_rate(self) -> float:
+        """FP32 instructions a clock per SM that chip_bounds.py's probe of
+        K6's color-pair step sustains (its clock from clock64), capped at
+        FP32_PER_CLK."""
+        import chip_bounds
+        torch = self.torch
+        if self.probes is None:
+            self.sm_clock()
+        iters = 1 << 16
+        pr = self.probes
+        pr.run(chip_bounds.K6_STEP_OP, iters)
+        torch.cuda.synchronize()
+        mhz = pr.clock64_mhz()["median"]
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        pr.run(chip_bounds.K6_STEP_OP, iters)
+        b.record()
+        torch.cuda.synchronize()
+        steps = pr.blocks * chip_bounds.THREADS * chip_bounds.CHAINS * iters
+        rate = 9 * steps / (a.elapsed_time(b) * 1e-3 * SMS * mhz * 1e6)
+        return min(FP32_PER_CLK, rate), rate
+
+    def k6_kernels(self):
+        """K6 against its plain twin, bit for bit: at K6_Q x K6_C for the
+        two-sided form and both one-sided forms with a row window; at
+        K6_TIMED (timed, with the plain twin once and torch.cdist of the
+        colors alone at a small shape as yardsticks); and the color top-k
+        of K6_TOPK_NEEDLES needles over a 2^20-row store."""
+        torch = self.torch
+        from cbird_tpu_torch.ops import color as pc
+        from cbird_tpu_torch.ops import color_scores as cs
+        rng = np.random.default_rng(SEED + 30)
+        hc, hn = self.color_device(self.color_rows(COLOR_ROWS, rng))
+        hv = torch.from_numpy(rng.random(COLOR_ROWS) > 0.01).to(self.dev)
+        hn[:64] = torch.tensor([0, 1, 2, 30, 31, 32, 28, 29] * 8,
+                               dtype=torch.int32)
+        q, c = K6_TIMED
+        pick = torch.from_numpy(rng.integers(0, COLOR_ROWS, q)).to(self.dev)
+        nc, nn = hc[pick].clone(), hn[pick].clone()
+        nc[:, :, 1] += 0.5  # near copies, not equal
+        nn[:8] = torch.tensor([0, 1, 30, 31, 32, 31, 29, 33 - 1],
+                              dtype=torch.int32)
+        err, checks = 0.0, 0
+        for qn in K6_Q:
+            for cn in K6_C:
+                for side, kw in (("both", {}),
+                                 ("ab", dict(lo=3, hi=cn - 2, base=1)),
+                                 ("ba", dict(lo=0, hi=cn, base=0))):
+                    args = (nc[:qn], nn[:qn], hc[:cn], hn[:cn], hv[:cn])
+                    got = cs.color_scores(*args, side=side, **kw)
+                    torch.cuda.synchronize()
+                    want = cs.color_scores_plain(*args, side=side, **kw)
+                    err = max(err, self.same(got, want,
+                                             f"K6 {side} q={qn} c={cn}"))
+                    checks += 1
+        args = (nc, nn, hc[:c], hn[:c], hv[:c])
+        buf = torch.empty((q, c), dtype=torch.float32, device=self.dev)
+        ms = self.event_ms(lambda: cs.color_scores(*args, out=buf), 3)
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        want = cs.color_scores_plain(*args)
+        b.record()
+        torch.cuda.synchronize()
+        plain_ms = a.elapsed_time(b)
+        err = max(err, self.same(buf, want, "K6 at the timed shape"))
+        del want, buf
+        # the top-k over the whole store: K6, chunks' stable sorts, merge;
+        # needle 8 has 101 rows at its best score, across a chunk edge
+        # (4096) and the k boundary: the lower rows win
+        src = COLOR_ROWS - 1000
+        hc[4090:4190], hn[4090:4190] = hc[src], hn[src]
+        hv[4090:4190] = True
+        hv[src] = True
+        nc[8], nn[8] = hc[src], hn[src]
+        nd = slice(8, 8 + K6_TOPK_NEEDLES)
+        got = pc.color_topk(nc[nd], nn[nd], hc, hn, hv, k=64)
+        want = (cs.color_scores_plain(nc[nd], nn[nd], hc, hn, hv)
+                .sort(dim=1, stable=True))
+        err = max(err, self.same(got[0], want.values[:, :64], "K6 top-k"),
+                  self.same(got[1], want.indices[:, :64], "K6 top-k rows"))
+        if int((got[0][0] == got[0][0, 0]).sum()) != 64:
+            raise AssertionError("K6 top-k: the planted ties did not fill k")
+        del want
+        # yardstick: the distances alone, torch.cdist of 64 needles' colors
+        # against 1024 rows' ([2048, 3] x [32768, 3])
+        ya, yb = nc[:64].reshape(-1, 3), hc[:1024].reshape(-1, 3)
+        cdist_ms = self.event_ms(lambda: torch.cdist(ya, yb), 5)
+        k6_small = self.event_ms(lambda: cs.color_scores(
+            nc[:64], nn[:64], hc[:1024], hn[:1024], hv[:1024]), 5)
+        rate, probed = self.k6_rate()
+        self.kernels["K6"].update(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+            cdist_yardstick_ms=cdist_ms, ms_at_cdist_shape=k6_small,
+            fp32_rate_per_clk_sm=rate, probed_k6_step_per_clk_sm=probed,
+            shape=f"Q={q} C={c} (two-sided)")
+        work = self.k6_work(nn, hn[:c], hv[:c])
+        self.bound(self.kernels["K6"], "bound_ms", "bound_by",
+                   fp32_rate=rate, **work)
+        out = {"K6_checks": checks, "K6_max_abs_err": err,
+               "K6_ms": round(ms, 4), "K6_plain_ms": round(plain_ms, 4),
+               "K6_cdist_64x1024_ms": round(cdist_ms, 4),
+               "K6_64x1024_ms": round(k6_small, 4),
+               "K6_probed_step_per_clk_sm": round(probed, 2),
+               "K6_shape": f"Q={q} C={c}"}
+        self.bound(out, "K6_bound_ms", fp32_rate=rate, **work)
+        return out
+
+    def color_groups(self, descs, rng):
+        """Plants COLOR_GROUPS groups of 4 in the first COLOR_SIMILAR_ROWS
+        rows: three near copies of a source (each Luv coordinate within 2
+        quantization steps, the same numColors).  @return [G, 4] rows"""
+        rows = rng.choice(COLOR_SIMILAR_ROWS, 4 * COLOR_GROUPS,
+                          replace=False).reshape(COLOR_GROUPS, 4)
+        for g in rows:
+            for r in g[1:]:
+                descs[r] = descs[g[0]]
+                jit = rng.integers(-2, 3, (32, 3))
+                descs[r, :32, :3] = np.clip(
+                    descs[g[0], :32, :3].astype(np.int64) + jit, 0, 65535)
+        return rows
+
+    @staticmethod
+    def color_needles(descs, groups):
+        """Unstored needle media carrying the groups' sources' descriptors
+        (-similar-to FILE)."""
+        from cbird_tpu_torch.store.media import Media
+        needles = []
+        for g in groups:
+            m = Media(f"/needle/{g[0]}.png")
+            m.colorDescriptor = descs[g[0]]
+            needles.append(m)
+        return needles
+
+    @staticmethod
+    def color_index(descs, ids, device):
+        from cbird_tpu_torch.index.color_desc_index import ColorDescIndex
+        idx = ColorDescIndex(device)
+        idx._store.add(descs, ids)
+        idx._loaded = True
+        idx._store.device_arrays()
+        return idx
+
+    def cdesc_phase(self):
+        """create_descriptors on the card over CDESC_IMAGES images;
+        CDESC_CPU of them against the port's CPU run."""
+        from cbird_tpu_torch.ops import color as pc
+        imgs = self.color_images(CDESC_IMAGES,
+                                 np.random.default_rng(SEED + 31))
+        pc.create_descriptors(imgs[:16], device=self.dev)  # warm-up
+        dt, descs = self.timed(lambda: pc.create_descriptors(
+            imgs, device=self.dev))
+        hist: dict = {}
+        for d in descs:
+            if d is not None:
+                c = int(d[32, 0])
+                hist[c] = hist.get(c, 0) + 1
+        if not hist:
+            raise AssertionError("no descriptor made")
+        self.color_hist = hist
+        t0 = time.perf_counter()
+        cpu = pc.create_descriptors(imgs[:CDESC_CPU], device="cpu")
+        cpu_s = time.perf_counter() - t0
+        equal, diffs = 0, []
+        for i, (a, b) in enumerate(zip(descs, cpu)):
+            if (a is None) != (b is None):
+                diffs.append({"image": i, "none": [a is None, b is None]})
+            elif a is None or np.array_equal(a, b):
+                equal += 1
+            else:
+                # each differing entry: (row, column, card, cpu)
+                diffs.append({"image": i, "entries": [
+                    [int(r), int(c), int(a[r, c]), int(b[r, c])]
+                    for r, c in np.argwhere(a != b)][:8]})
+        return {"images": len(imgs), "wall_ms": round(dt, 1),
+                "images_per_s": round(len(imgs) / (dt / 1e3), 1),
+                "descriptors": sum(d is not None for d in descs),
+                "num_colors_hist": {str(k): hist[k] for k in sorted(hist)},
+                "cpu_compared": CDESC_CPU, "cpu_equal": equal,
+                "cpu_differences": diffs, "cpu_s": round(cpu_s, 2)}
+
+    def color_phase(self):
+        """-similar-to over a 2^20-row color store, -similar over its first
+        2^16 rows, the scan path against the bucketed one over 2^14."""
+        torch = self.torch
+        from cbird_tpu_torch.ops import color_scores as cs
+        from cbird_tpu_torch.params import SearchParams
+        descs, ids, groups = self.color_store(
+            np.random.default_rng(SEED + 32),
+            getattr(self, "color_hist", None))
+        idx = self.color_index(descs, ids, self.dev)
+        sp = SearchParams()
+        out = {"rows": COLOR_ROWS, "groups": COLOR_GROUPS}
+        needles = self.color_needles(descs, groups)
+        k6 = cs.color_scores.launches
+        wall, res = self.timed(lambda: idx.find_batch(needles, sp))
+        warm, _ = self.timed(lambda: idx.find_batch(needles, sp))
+        if cs.color_scores.launches == k6:
+            raise AssertionError("K6 did not run for -similar-to")
+        for g, ms in zip(groups, res):
+            got = {m.mediaId for m in ms}
+            if not set(ids[g]) <= got:
+                raise AssertionError(f"color -similar-to of {g[0]}: {got}")
+        with self.uncounted():  # K6 alone at this launch's shape
+            nc, nn = self.color_device(np.stack([descs[g[0]]
+                                                 for g in groups]))
+            hc, hn, hv = idx._store.device_arrays()
+            k6_ms = self.event_ms(lambda: cs.color_scores(nc, nn, hc, hn, hv),
+                                  5)
+        out.update(similar_to_wall_ms=round(wall, 1),
+                   similar_to_warm_ms=round(warm, 1),
+                   similar_to_k6_ms=round(k6_ms, 3))
+        del idx
+        torch.cuda.empty_cache()
+        # -similar: find_all (count-bucketed) over the first 2^16 rows
+        n = COLOR_SIMILAR_ROWS
+        idx = self.color_index(descs[:n], ids[:n], self.dev)
+        wall, (_, raw) = self.timed(lambda: idx.find_all(sp))
+        for g in groups:
+            if not set(ids[g]) <= set(raw.get(int(g[0]), ((),))[0]):
+                raise AssertionError(f"color -similar missed group {g}")
+        out.update(similar_rows=n, similar_wall_ms=round(wall, 1),
+                   similar_rows_with_hits=len(raw))
+        # the scan path against the bucketed one over 2^14 rows
+        n = COLOR_SCAN_ROWS
+        store = self.color_index(descs[:n], ids[:n], self.dev)._store
+        k = sp.maxMatches + 8
+        res = {}
+        for mode in ("on", "off"):
+            os.environ["CBIRD_COLOR_BUCKETS"] = mode
+            try:
+                res[mode] = self.timed(lambda: store.search_self(
+                    k=k, sparse=True))
+            finally:
+                del os.environ["CBIRD_COLOR_BUCKETS"]
+        (w_on, on), (w_off, off) = res["on"], res["off"]
+        if sorted(on) != sorted(off) or not all(
+                np.array_equal(on[r][0], off[r][0])
+                and np.array_equal(on[r][1], off[r][1]) for r in on):
+            raise AssertionError("bucketed and scan self-search differ")
+        out.update(scan_rows=n, bucketed_wall_ms=round(w_on, 1),
+                   scan_wall_ms=round(w_off, 1), scan_rows_with_hits=len(on))
+        del store
+        torch.cuda.empty_cache()
+        return out
+
+    def color_cli_phase(self):
+        """The CLI with -p.alg color over CCLI_SOURCES colored sources, each
+        with a half-size, a mirrored and a jpeg q50 copy: -update, -similar,
+        -similar-to of a mirrored copy, -merge, -test-image-search (four
+        files) and -test-image-loader exit 0 and find the copies."""
+        from PIL import Image
+        from cbird_tpu_torch.cli.main import NOT_PORTED, main
+        from cbird_tpu_torch.ops import color_scores as cs
+        rng = np.random.default_rng(SEED + 33)
+        lifted = {"-merge", "-test-image-search", "-test-image-loader"}
+        if lifted & NOT_PORTED:
+            raise AssertionError(f"still gated: {lifted & NOT_PORTED}")
+        out = {}
+        k6 = cs.color_scores.launches
+
+        def run(*args):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = main(["-use", d, *args])
+            if rc:
+                raise AssertionError(f"{args} rc {rc}")
+            return buf.getvalue()
+        with tempfile.TemporaryDirectory() as d:
+            owner = {}
+            for s in range(CCLI_SOURCES):
+                im = Image.fromarray(color_image(rng, 240, 320))
+                for name, v in (("src.png", im),
+                                ("half.png", im.resize((160, 120),
+                                                       Image.BOX)),
+                                ("mirror.png", im.transpose(
+                                    Image.FLIP_LEFT_RIGHT)),
+                                ("q50.jpg", im)):
+                    path = os.path.join(d, f"c{s:02d}_{name}")
+                    v.save(path, quality=50) if name.endswith(".jpg") \
+                        else v.save(path)
+                    owner[os.path.basename(path)] = s
+            t0 = time.perf_counter()
+            run("-create", "-i.algos", "dct+color", "-update")
+            out["update_s"] = round(time.perf_counter() - t0, 3)
+            groups = groups_of(run("-p.alg", "color", "-similar", "-json"))
+            joined = joined_sources(groups, owner)
+            out.update(groups=len(groups), sources_joined=joined)
+            if joined != CCLI_SOURCES:
+                raise AssertionError(f"only {joined} sources joined their "
+                                     f"4 variants")
+            mirror = os.path.join(d, "c03_mirror.png")
+            hit = json.loads(run("-p.alg", "color", "-similar-to", mirror,
+                                 "-json"))
+            got = {owner[os.path.basename(m["path"])]
+                   for m in hit[0]["matches"][:3]} if hit else set()
+            if got != {3}:
+                raise AssertionError(f"-similar-to a mirror: {got}")
+            merged = run("-merge", os.path.join(d, "c00_src.png"),
+                         os.path.join(d, "c01_mirror.png"), "-dump")
+            if "c01_mirror.png" not in merged or "c00_src.png" not in merged:
+                raise AssertionError("-merge lost an item")
+            files = [os.path.join(d, f"c{s:02d}_src.png") for s in range(4)]
+            table = run("-select-files", *files, "-test-image-search")
+            if "|  dct |   4 |   0 |" not in table:
+                raise AssertionError(f"-test-image-search: {table}")
+            loader = run("-test-image-loader", files[0])
+            if "320x240" not in loader:
+                raise AssertionError(f"-test-image-loader: {loader}")
+        if cs.color_scores.launches == k6:
+            raise AssertionError("K6 did not run in the ccli phase")
+        out["similar_to_mirror_matches"] = len(hit[0]["matches"])
+        return out
+
+
+def color_image(rng, h: int, w: int) -> np.ndarray:
+    """Eight color patches (as the tests' color images) on a color ramp,
+    with mild noise, so that, as in photos, the k-means finds 32 distinct
+    colors (numColors 31); seeded."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = (rng.integers(40, 200, 3) + yy[..., None] * rng.uniform(
+        -0.3, 0.3, 3) + xx[..., None] * rng.uniform(-0.3, 0.3, 3))
+    for _ in range(8):
+        y, x = rng.integers(0, h - h // 5), rng.integers(0, w - w // 5)
+        ph, pw = rng.integers(h // 8, h // 3), rng.integers(w // 8, w // 3)
+        img[y:y + ph, x:x + pw] = rng.integers(30, 255, size=3)
+    img += rng.normal(0.0, 4.0, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
 
 def textured(rng, h: int, w: int) -> np.ndarray:
     """Blocks of random grey on a flat ground (the tests' textured images),
@@ -2296,6 +2743,13 @@ def main() -> int:
         "K5-popc": {"name": "hamming_lanes_topk_popc", "route": "cuda",
                     "source": "cbird_tpu_torch/csrc/hamming_lanes_topk.cu",
                     "replaces": "cbird_tpu/ops/hamming.py:894"},
+        "K6": {"name": "color_scores", "route": "cuda",
+               "source": "cbird_tpu_torch/csrc/color_scores.cu",
+               "replaces": "cbird_tpu/ops/color.py:266",
+               "also_replaces": ["cbird_tpu/ops/color.py:315",
+                                 "cbird_tpu/ops/color.py:352",
+                                 "cbird_tpu/ops/color.py:397",
+                                 "cbird_tpu/ops/color.py:435"]},
     }
     for k in s.kernels.values():
         k["launches"] = 0
@@ -2309,7 +2763,9 @@ def main() -> int:
                      ("ph", s.ph_phase), ("video", s.video_phase),
                      ("vcli", s.video_cli_phase), ("cli", s.cli_phase),
                      ("feat", s.feat_phase), ("fdct", s.fdct_phase),
-                     ("orb", s.orb_phase), ("fcli", s.fcli_phase)):
+                     ("orb", s.orb_phase), ("fcli", s.fcli_phase),
+                     ("cdesc", s.cdesc_phase), ("color", s.color_phase),
+                     ("ccli", s.color_cli_phase)):
         s.set_launches(dict.fromkeys(s.counters, 0))
         second = hamming_topk.overflowed
         s.phase(name, fn)

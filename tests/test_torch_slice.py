@@ -145,11 +145,13 @@ def test_jpeg_digests_equal_reference():
 
 
 def test_not_ported_verbs_fail_cleanly(jax_index, capsys):
-    """Color, the template matcher and the verbs that need them exit 2
-    (fdct and orb are ported: tests/test_torch_orb.py)."""
+    """The template matcher and the verbs that need a module the port
+    does not have yet exit 2 (fdct and orb are ported:
+    tests/test_torch_orb.py; color, -merge and -test-image-search:
+    tests/test_torch_color.py)."""
     d, _ = jax_index
-    for args in (["-p.alg", "color", "-similar"], ["-p.tm", "1", "-similar"],
-                 ["-merge"], ["-test-image-search"], ["-browse"]):
+    for args in (["-p.tm", "1", "-similar"], ["-browse"], ["-serve"],
+                 ["-qualityscore"]):
         assert port_cli.main(["-use", d, *args]) == 2, args
         assert "not ported yet" in capsys.readouterr().err
 
@@ -170,8 +172,8 @@ def test_show_report_equal(jax_index, tmp_path, monkeypatch):
 
 def test_slice_imports_no_jax(corpus):
     """Every module of the port imported, then the CLI slice run (dct, and
-    -update -similar with fdct and with orb): neither jax nor any module
-    of the JAX package (cbird_tpu) is loaded."""
+    -update -similar with fdct, with orb and with color): neither jax nor
+    any module of the JAX package (cbird_tpu) is loaded."""
     d = _copy(corpus, "nojax")
     needle = os.path.join(d, "img000_s100.png")
     code = (
@@ -186,7 +188,7 @@ def test_slice_imports_no_jax(corpus):
         " '-similar', '-json']) == 0\n"
         f"assert main(['-use', {d!r}, '-similar-to', {needle!r}]) == 0\n"
         "import contextlib, io\n"
-        "for alg in ('fdct', 'orb'):\n"
+        "for alg in ('fdct', 'orb', 'color'):\n"
         "    with contextlib.redirect_stdout(io.StringIO()):\n"
         f"        assert main(['-use', {d!r}, '-i.algos', 'dct+' + alg,"
         " '-update', '-p.alg', alg, '-similar']) == 0\n"
