@@ -18,7 +18,9 @@ Numerics.  The batch keeps ``vmap(while_loop)``'s semantics: each image
 stops at its own iteration count, and an image's descriptor does not
 depend on the batch it is in.  Ties follow JAX: ``argmin`` / ``argmax``
 take the first index, an empty cluster keeps its center, all-zero
-minimum distances fall back to uniform seeding.  Two things differ from
+minimum distances fall back to uniform seeding.  XLA's contractions of a
+multiply into the add that takes it and its square roots are rounded
+once, as XLA rounds them (``ops/exact32.py``).  Two things differ from
 XLA's CPU and are chosen to give the same bits on the CPU and the card:
 
 - the cube root of ``rgb_to_luv`` and the ``log`` of the seeding are
@@ -49,6 +51,7 @@ import torch
 from ..device import resolve
 from . import prng
 from .color_scores import BAD_SCORE, NUM_COLORS, color_scores
+from .exact32 import fma32, sqrt32
 from .hamming import _bucket
 
 _U16 = 65535.0
@@ -70,19 +73,6 @@ _SAMPLES_PER_LAUNCH = 1 << 20
 # color space
 # ---------------------------------------------------------------------------
 
-def _f64(v):
-    return v.double() if isinstance(v, torch.Tensor) else float(np.float32(v))
-
-
-def _fma(a, b, c) -> torch.Tensor:
-    """float32 ``a * b + c`` rounded once, as XLA's CPU backend contracts a
-    multiply into the add that takes it; taken in float64, where the
-    product of two float32 is exact (so only the add rounds there)."""
-    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
-        return torch.addcmul(_f64(c), a.double(), b.double()).float()
-    return (_f64(a) * _f64(b) + _f64(c)).float()
-
-
 def _cbrt(y: torch.Tensor) -> torch.Tensor:
     return torch.pow(y.double(), _THIRD).float()
 
@@ -91,13 +81,13 @@ def rgb_to_luv(rgb: torch.Tensor) -> torch.Tensor:
     """RGB [..., 3] float32 in [0, 1] -> Luv (OpenCV cvtColor float
     semantics: linear RGB -> XYZ matrix, no gamma; L in [0, 100], u in
     [-134, 220], v in [-140, 122]).  The sums of products are contracted
-    as XLA contracts them (``_fma``)."""
+    as XLA contracts them (``fma32``)."""
     r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
-    x = _fma(0.180423, b, _fma(0.412453, r, 0.357580 * g))
-    y = _fma(0.072169, b, _fma(0.212671, r, 0.715160 * g))
-    z = _fma(0.950227, b, _fma(0.019334, r, 0.119193 * g))
-    l = torch.where(y > 0.008856, _fma(116.0, _cbrt(y), -16.0), 903.3 * y)
-    denom = _fma(3.0, z, _fma(15.0, y, x))
+    x = fma32(0.180423, b, fma32(0.412453, r, 0.357580 * g))
+    y = fma32(0.072169, b, fma32(0.212671, r, 0.715160 * g))
+    z = fma32(0.950227, b, fma32(0.019334, r, 0.119193 * g))
+    l = torch.where(y > 0.008856, fma32(116.0, _cbrt(y), -16.0), 903.3 * y)
+    denom = fma32(3.0, z, fma32(15.0, y, x))
     pos = denom > 0
     safe = torch.where(pos, denom, 1.0)
     up = torch.where(pos, 4.0 * x / safe, 0.0)
@@ -135,7 +125,7 @@ def dequantize_luv(q: np.ndarray) -> np.ndarray:
 def _sq3(dl, du, dv) -> torch.Tensor:
     """dl^2 + du^2 + dv^2 as XLA's reduce over the three adds them: the
     running sum with each square contracted into its add."""
-    return _fma(dv, dv, _fma(du, du, dl * dl))
+    return fma32(dv, dv, fma32(du, du, dl * dl))
 
 
 def _d2(luv: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
@@ -233,7 +223,7 @@ def _lloyd_step(luv, mask, centers):
     new = torch.where(cf > 0, sums / torch.clamp_min(cf, 1.0),
                       centers)  # an empty cluster keeps its center
     moved = _sq3(*(new - centers).unbind(-1))
-    return new, torch.sqrt(moved.amax(dim=1))
+    return new, sqrt32(moved.amax(dim=1))
 
 
 def _kmeans(luv, mask, keys, max_iter: int = 100, eps: float = 10.0):
@@ -274,7 +264,7 @@ def _descriptor_batch(canvas: torch.Tensor, sizes: torch.Tensor, keys):
     # black and are then dropped by the L > 4 filter
     ex = (xx - w * 0.5) / torch.clamp_min(w * 0.45, 1.0)
     ey = (yy - h * 0.5) / torch.clamp_min(h * 0.45, 1.0)
-    inside = _fma(ex, ex, ey * ey) <= 1.0
+    inside = fma32(ex, ex, ey * ey) <= 1.0
 
     rgb = canvas.to(torch.float32) * (1.0 / 256.0)  # mask scale + [0, 1]
     luv = rgb_to_luv(rgb)  # [B, H, W, 3]
@@ -288,9 +278,9 @@ def _descriptor_batch(canvas: torch.Tensor, sizes: torch.Tensor, keys):
     # positional damping: weight = (maxDist - dist_from_center) / maxDist
     dx = xx - torch.floor(w / 2.0)
     dy = yy - torch.floor(h / 2.0)
-    dist = torch.sqrt(_fma(dx, dx, dy * dy))
+    dist = sqrt32(fma32(dx, dx, dy * dy))
     hw, hh = w / 2.0, h / 2.0
-    max_dist = torch.sqrt(_fma(hw, hw, hh * hh))
+    max_dist = sqrt32(fma32(hw, hw, hh * hh))
     wpos = ((max_dist - dist) / torch.clamp_min(max_dist, 1e-6))
     wpos = wpos.expand(b, hmax, wmax).reshape(b, -1, 1)
     label_n, label_w = _cluster_sums(labels, flat_keep, wpos, _W_SCALE)

@@ -17,12 +17,15 @@ Contract, for needle q and haystack row c (store row ``base + c``):
 - else ``1 + sum over the colors of side A of min over the colors of side
   B of max(sqrt(d2), floor 0.06 to 0)``, with A the side with more colors
   (ties: the needle) for ``side="both"``, the needle for ``"ab"`` and the
-  row for ``"ba"``.  ``d2 = (dl*dl + du*du) + dv*dv`` (needle minus row,
-  unfused), the minimum taken on ``d2`` and the sum in ascending color
-  order: the kernel and the plain twin give the same bits.
+  row for ``"ba"``.  ``d2 = fma(dv, dv, fma(dl, dl, du * du))`` (needle
+  minus row, each fma rounded once), the minimum taken on ``d2``, the
+  square root rounded once and the sum in ascending color order.
 
-The JAX package sums the minima in XLA's order, so scores agree with it to
-~1e-6 relative.  On a CPU tensor ``color_scores`` runs
+That is XLA's order on the CPU: the kernel, the plain twin and the JAX
+package's ``_color_scores``, ``_color_scores_oneside``,
+``color_self_block`` and ``color_topk`` give the same bits (the tests
+hold the twin to them).  The twin takes the fmas and the root through
+``ops/exact32.py``.  On a CPU tensor ``color_scores`` runs
 ``color_scores_plain``; on any other device it launches the kernel or
 raises.  ``color_scores.launches`` counts the calls that launched it.
 """
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from .exact32 import fma32, sqrt32
 
 NUM_COLORS = 32
 BAD_SCORE = np.float32(3.0e38)
@@ -44,7 +48,7 @@ _FLOOR = 0.06  # a distance below it counts 0 (compared in float32)
 
 
 def _finish(m2: torch.Tensor) -> torch.Tensor:
-    d = torch.sqrt(torch.clamp_min(m2, 0.0))
+    d = sqrt32(torch.clamp_min(m2, 0.0))
     floor = torch.tensor(_FLOOR, dtype=torch.float32, device=d.device)
     return torch.where(d < floor, torch.zeros_like(d), d)
 
@@ -61,10 +65,9 @@ def _plain_tile(nc, nn, hc, hn):
                       device=nc.device)  # min over the needle's colors
     for i in range(int(nn.max())):
         on = (i < nn)[:, None]  # [Q, 1]
-        d2 = None
-        for k in range(3):
-            dk = nc[:, i, k][:, None, None] - hc[None, :, :, k]
-            d2 = dk * dk if d2 is None else d2 + dk * dk
+        dl, du, dv = (nc[:, i, k][:, None, None] - hc[None, :, :, k]
+                      for k in range(3))
+        d2 = fma32(dv, dv, fma32(dl, dl, du * du))
         m = torch.where(jmask[None], d2, big).amin(dim=2)
         s_ab = s_ab + torch.where(on, _finish(m), 0.0)
         mins = torch.minimum(mins, torch.where(on[:, :, None], d2, big))

@@ -17,7 +17,11 @@ compiler made of both and what the card sustains:
            warpgroup MMAs (QGMMA for e4m3, IGMMA for s8), moves, shifts,
            LEA, HADD2, barriers (SYNCS, BAR, WARPGROUP) and shared loads
            and stores: the script fails if a main loop holds no *GMMA or
-           an mma.sync (IMMA, HMMA)
+           an mma.sync (IMMA, HMMA); for K6 its loops of 100 or more
+           instructions (the color-pair loops and the needle loop around
+           them): their FP32 opcodes (FADD, FMUL, FFMA, FMNMX) against
+           all, and the script fails if one holds no FFMA (d2 is
+           contracted as XLA contracts it)
   probes   kernels of 8 independent chains a thread, timed with
            CUDA events: POPC chained through an add (a += popc(a)), the
            epilogue's compare and add (x += d; c += x > lim), K1's
@@ -33,8 +37,8 @@ compiler made of both and what the card sustains:
            product's sign bits after it, as IGMMA per clock per SM and
            int8 TOPS; and the e4m3 wgmma with f16 sums (K1-mma's and K5's
            products) chained on two warpgroups, as QGMMA per clock per SM
-           and TOPS; and K6's color-pair step (3 subtracts, 3 multiplies,
-           2 adds unfused and a min) as FP32 instructions a clock per SM
+           and TOPS; and K6's color-pair step (3 subtracts, a multiply,
+           2 FMAs and a min) as FP32 instructions a clock per SM
   K1       the popcount K1 at Q=16384, N=2^21, t=5 (the K1 variants'
            shape, on operands made as chip_smoke's): 20 launches after
            K1-mma's two forms, as chip_smoke times them, and 100 alone,
@@ -308,8 +312,8 @@ __global__ void __launch_bounds__(128 * WGS, 1) wgmma_f16_probe(
     tb[0] = c0; tb[1] = clock64(); tb[2] = g0; tb[3] = globaltimer();
   }
 }
-// K6's color-pair step (color_scores.cu): 3 subtracts, 3 multiplies, 2
-// adds, unfused, and a min, on CHAINS independent minima a thread
+// K6's color-pair step (color_scores.cu): 3 subtracts, a multiply, 2
+// FMAs and a min, on CHAINS independent minima a thread
 __global__ void __launch_bounds__(256) k6_step_probe(
     unsigned* out, unsigned long long* times, int iters, unsigned d) {
   const unsigned long long c0 = clock64(), g0 = globaltimer();
@@ -327,9 +331,8 @@ __global__ void __launch_bounds__(256) k6_step_probe(
       const float dl = __fsub_rn(a[j], hl);
       const float du = __fsub_rn(a[j], m[j]);
       const float dv = __fsub_rn(hl, m[j]);
-      m[j] = fminf(m[j], __fadd_rn(__fadd_rn(__fmul_rn(dl, dl),
-                                             __fmul_rn(du, du)),
-                                   __fmul_rn(dv, dv)));
+      m[j] = fminf(m[j], __fmaf_rn(dv, dv, __fmaf_rn(dl, dl,
+                                                     __fmul_rn(du, du))));
     }
     hl = __fadd_rn(hl, 1.0f);
   }
@@ -372,7 +375,9 @@ extern "C" int cbird_probe(int op, void* out, void* times, int blocks,
 }
 """
 CHAINS, THREADS = 8, 256
-K6_STEP_OP = 9  # K6's color-pair step: 9 FP32 instructions a step
+K6_STEP_OP = 9  # the probe of K6's color-pair step
+K6_STEP_INSNS = 7  # its FP32 instructions a step
+K6_FP32 = ("FADD", "FMUL", "FFMA", "FMNMX")
 INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
 TARGET = re.compile(r"BRA\s+(?:`\()?(0x[0-9a-f]+|\.L_x_\d+)")
 LABEL = re.compile(r"^\s*(\.L_x_\d+):")
@@ -425,6 +430,19 @@ def loops(lines: list[str]) -> list[dict]:
             out.append({"to": key, "instructions": len(body),
                         "opcodes": dict(ops.most_common())})
     return out
+
+
+def k6_pair_loops(fn: str, lps: list[dict]) -> dict:
+    """K6's loops of 100 or more instructions (a needle color against a
+    row's 32 colors, and the needle loop around them): each one's FP32
+    opcodes and its length, and ok when each holds an FFMA."""
+    body = [lp for lp in lps if lp["instructions"] >= 100]
+    rows = [{"instructions": lp["instructions"],
+             "fp32": {o: lp["opcodes"].get(o, 0) for o in K6_FP32},
+             "other": {o: c for o, c in lp["opcodes"].items()
+                       if o not in K6_FP32}} for lp in body]
+    return {"check": "K6 color-pair loops", "function": fn, "loops": rows,
+            "ok": bool(rows) and all(r["fp32"]["FFMA"] > 0 for r in rows)}
 
 
 def wgmma_main_loop(fn: str, lps: list[dict]) -> dict:
@@ -595,6 +613,10 @@ def main() -> int:
             row = wgmma_main_loop(fn, lps)
             ok &= row["ok"]
             print(json.dumps(row), flush=True)
+        if "score_kernel" in fn:
+            row = k6_pair_loops(fn, lps)
+            ok &= row["ok"]
+            print(json.dumps(row), flush=True)
 
     pr = Probes(torch, so)
     iters = 1 << 19
@@ -667,9 +689,10 @@ def main() -> int:
         "e4m3_f16_tops": n * 64 * 256 * 32 * 2 / (ms * 1e-3) / 1e12,
         "loop_opcodes": body["opcodes"]}), flush=True)
 
-    # K6's color-pair step (FP32 subtracts, multiplies, adds and a min):
+    # K6's color-pair step (FP32 subtracts, a multiply, FMAs and a min):
     # the FP32 instructions it sustains a clock per SM, and the loop's
-    # opcodes (chip_smoke.py bounds K6 at the lower of this and 128)
+    # opcodes (chip_smoke.py prints it beside K6's bound, which takes the
+    # peak of 128)
     iters = 1 << 16
     ms, clk = timed_ms(torch, lambda: pr.run(K6_STEP_OP, iters), 5)
     clk["clock64_mhz"] = pr.clock64_mhz()
@@ -679,9 +702,9 @@ def main() -> int:
                default={"opcodes": {}})
     print(json.dumps({
         "probe": "k6_color_pair_step", "ms": ms, "clock": clk,
-        "fp32_per_clk_sm_at_max": 9 * steps / (ms * 1e-3 * sms * max_mhz
-                                               * 1e6),
-        "fp32_per_clk_sm_at_clock64": 9 * steps / (
+        "fp32_per_clk_sm_at_max": K6_STEP_INSNS * steps / (
+            ms * 1e-3 * sms * max_mhz * 1e6),
+        "fp32_per_clk_sm_at_clock64": K6_STEP_INSNS * steps / (
             ms * 1e-3 * sms * clk["clock64_mhz"]["median"] * 1e6),
         "loop_opcodes": body["opcodes"]}), flush=True)
 
@@ -719,7 +742,8 @@ def main() -> int:
             flush=True)
     if not ok:
         print("chip_bounds: a wgmma kernel's main loop holds no warpgroup MMA "
-              "or an mma.sync", file=sys.stderr)
+              "or an mma.sync, or a K6 color-pair loop no FFMA",
+              file=sys.stderr)
     return 0 if ok else 1
 
 

@@ -105,12 +105,15 @@ K6_C for both sides and the one-sided forms with a row window, and times
 it at K6_TIMED beside its plain twin and, as a yardstick, torch.cdist of
 the colors alone at a small shape; and the color top-k of 8 needles over a
 2^20-row store against the plain twin's, one needle with 101 rows tied at
-its best score across a chunk edge and the k boundary.  K6's bound counts the FP32
-instructions the data needs (3 subtracts, 3 multiplies, 2 adds and a min a
-color pair of each scored pair, over the side it takes; a sqrt, a compare
-and an add a color of that side) at FP32_PER_CLK a clock per SM, or at
-the rate chip_bounds.py's probe of that color-pair step sustains where it
-is lower.
+its best score across a chunk edge and the k boundary; and in warps
+whose rows' counts straddle the needles'.  It times K6's one-sided forms
+("ab", "ba") at color -similar's launch, 1024 needles x K6_WINDOW rows,
+each checked on its first K6_WINDOW_CHECKED needles.  K6's bound counts
+the FP32 instructions the data needs (3 subtracts, a multiply, 2 FMAs and
+a min a color pair of each scored pair, over the side it takes; a sqrt, a
+compare and an add a color of that side) at FP32_PER_CLK a clock per SM,
+the card's peak; the rate chip_bounds.py's probe of that color-pair step
+sustains is printed beside it (probed_k6_step_per_clk_sm).
 
 The main path is query, self, ph, video, vcli, cli, feat, fdct, orb,
 fcli, cdesc, color and ccli: the launch
@@ -232,13 +235,16 @@ K5_TIMED = (("6400_bound25", 6400, 25), ("6400_unbounded", 6400, 257),
 # the color store (2^20 descriptors, COLOR_GROUPS planted groups of 4 in
 # its first COLOR_SIMILAR_ROWS rows), -similar over those rows, the scan
 # path against the bucketed one over COLOR_SCAN_ROWS; K6's timed shape
-# (Q, C: chunks of 4096), its checked needle and row counts (around its
-# tiles of 32 needles and 128 rows) and the topk check's needles over the
-# whole store; ccli's sources (x 4 variants)
+# (Q, C: chunks of 4096), its one-sided window (the bucketed -similar's
+# super chunk), its checked needle and row counts (around its tiles of 32
+# needles and 128 rows) and the topk check's needles over the whole store;
+# ccli's sources (x 4 variants)
 CDESC_IMAGES, CDESC_CPU = 1024, 16
 COLOR_ROWS, COLOR_SIMILAR_ROWS, COLOR_SCAN_ROWS = 1 << 20, 1 << 16, 1 << 14
 COLOR_GROUPS = 64
 K6_TIMED = (1024, 1 << 18)
+K6_WINDOW = 1 << 16
+K6_WINDOW_CHECKED = 128
 K6_Q = (1, 31, 32, 33, 64)
 K6_C = (1, 127, 128, 129, 4097)
 K6_TOPK_NEEDLES = 8
@@ -360,19 +366,17 @@ class Smoke:
     def bound(self, target: dict, key: str, by: str | None = None, *,
               nbytes: float, popc: float = 0, alu: float = 0,
               int_ops: float = 0, tc_ops: float = 0,
-              tc_rate: float = TC_INT8_OPS_PER_S, fp32: float = 0,
-              fp32_rate: float = FP32_PER_CLK):
+              tc_rate: float = TC_INT8_OPS_PER_S, fp32: float = 0):
         """Sets ``target[key]`` to the least time (ms) the card could take
         to move ``nbytes`` and execute ``popc`` POPC, ``int_ops`` INT32
         instructions of which ``alu`` are compares or logic (the ALU pipe
         only), ``tc_ops`` tensor-core operations at ``tc_rate`` and ``fp32``
-        FP32 instructions at ``fp32_rate`` a clock per SM, and
+        FP32 instructions at FP32_PER_CLK a clock per SM, and
         ``target[by]`` to which of the two bounds it.  finish_bounds sets
         it, at the highest SM clock the kernels phase read."""
         self.bound_sites.append((target, key, by, dict(
             nbytes=nbytes, popc=popc, alu=alu, int_ops=int_ops,
-            tc_ops=tc_ops, tc_rate=tc_rate, fp32=fp32,
-            fp32_rate=fp32_rate)))
+            tc_ops=tc_ops, tc_rate=tc_rate, fp32=fp32)))
 
     def finish_bounds(self):
         clk = self.clock_hz * SMS
@@ -381,7 +385,7 @@ class Smoke:
                          w["alu"] / (ALU_PER_CLK * clk),
                          w["int_ops"] / (INT32_PER_CLK * clk),
                          w["tc_ops"] / w["tc_rate"],
-                         w["fp32"] / (w["fp32_rate"] * clk))
+                         w["fp32"] / (FP32_PER_CLK * clk))
             by_bytes = w["nbytes"] / HBM_BYTES_PER_S
             target[key] = max(by_ops, by_bytes) * 1e3
             if by:
@@ -2301,11 +2305,12 @@ class Smoke:
 
     @staticmethod
     def k6_work(nn, hn, hv, side: str = "both"):
-        """The FP32 instructions K6's scored pairs need (3 subtracts, 3
-        multiplies, 2 adds and a min a color pair, over the counts; a sqrt,
+        """The FP32 instructions K6's scored pairs need (3 subtracts, a
+        multiply, 2 FMAs and a min a color pair, over the counts; a sqrt,
         a compare and an add a color of the side that drives the sum), from
         the histograms of the needle and live row counts; bytes: each needle
         (384 + 4), each row (384 + 4 + 1) and each [Q, C] score once."""
+        import chip_bounds
         a = np.bincount(nn.cpu().numpy(), minlength=33).astype(np.float64)
         hv = hv.cpu().numpy()
         b = np.bincount(hn.cpu().numpy()[hv], minlength=33).astype(
@@ -2317,13 +2322,15 @@ class Smoke:
                     continue
                 outer = max(x, y) if side == "both" else \
                     (x if side == "ab" else y)
-                ops += a[x] * b[y] * (9 * x * y + 3 * outer)
+                ops += a[x] * b[y] * (chip_bounds.K6_STEP_INSNS * x * y
+                                      + 3 * outer)
         q, c = len(nn), len(hn)
         return dict(nbytes=388 * q + 389 * c + 4 * q * c, fp32=ops)
 
     def k6_rate(self) -> float:
         """FP32 instructions a clock per SM that chip_bounds.py's probe of
-        K6's color-pair step sustains (its clock from clock64), capped at
+        K6's color-pair step sustains (its clock from clock64): a
+        diagnostic printed beside K6's bound, which takes the card's peak,
         FP32_PER_CLK."""
         import chip_bounds
         torch = self.torch
@@ -2341,8 +2348,27 @@ class Smoke:
         b.record()
         torch.cuda.synchronize()
         steps = pr.blocks * chip_bounds.THREADS * chip_bounds.CHAINS * iters
-        rate = 9 * steps / (a.elapsed_time(b) * 1e-3 * SMS * mhz * 1e6)
-        return min(FP32_PER_CLK, rate), rate
+        rate = chip_bounds.K6_STEP_INSNS * steps / (
+            a.elapsed_time(b) * 1e-3 * SMS * mhz * 1e6)
+        return rate
+
+    def k6_operands(self, rng):
+        """K6's operands on the card: a COLOR_ROWS-row store (counts from
+        color_rows' histogram, 1% invalid; counts 0-32 in each warp of its
+        first 64 rows) and K6_TIMED[0] needles, near copies of its rows
+        (counts 0-32 in the first 8).  @return (nc, nn, hc, hn, hv)"""
+        torch = self.torch
+        hc, hn = self.color_device(self.color_rows(COLOR_ROWS, rng))
+        hv = torch.from_numpy(rng.random(COLOR_ROWS) > 0.01).to(self.dev)
+        hn[:64] = torch.tensor([0, 1, 2, 30, 31, 32, 28, 29] * 8,
+                               dtype=torch.int32)
+        pick = torch.from_numpy(rng.integers(0, COLOR_ROWS,
+                                             K6_TIMED[0])).to(self.dev)
+        nc, nn = hc[pick].clone(), hn[pick].clone()
+        nc[:, :, 1] += 0.5  # near copies, not equal
+        nn[:8] = torch.tensor([0, 1, 30, 31, 32, 31, 29, 33 - 1],
+                              dtype=torch.int32)
+        return nc, nn, hc, hn, hv
 
     def k6_kernels(self):
         """K6 against its plain twin, bit for bit: at K6_Q x K6_C for the
@@ -2354,16 +2380,8 @@ class Smoke:
         from cbird_tpu_torch.ops import color as pc
         from cbird_tpu_torch.ops import color_scores as cs
         rng = np.random.default_rng(SEED + 30)
-        hc, hn = self.color_device(self.color_rows(COLOR_ROWS, rng))
-        hv = torch.from_numpy(rng.random(COLOR_ROWS) > 0.01).to(self.dev)
-        hn[:64] = torch.tensor([0, 1, 2, 30, 31, 32, 28, 29] * 8,
-                               dtype=torch.int32)
+        nc, nn, hc, hn, hv = self.k6_operands(rng)
         q, c = K6_TIMED
-        pick = torch.from_numpy(rng.integers(0, COLOR_ROWS, q)).to(self.dev)
-        nc, nn = hc[pick].clone(), hn[pick].clone()
-        nc[:, :, 1] += 0.5  # near copies, not equal
-        nn[:8] = torch.tensor([0, 1, 30, 31, 32, 31, 29, 33 - 1],
-                              dtype=torch.int32)
         err, checks = 0.0, 0
         for qn in K6_Q:
             for cn in K6_C:
@@ -2377,6 +2395,39 @@ class Smoke:
                     err = max(err, self.same(got, want,
                                              f"K6 {side} q={qn} c={cn}"))
                     checks += 1
+        # warps whose rows straddle the needles' counts (rows of 28-32
+        # colors, needles of 29-31): the two-sided form's mixed warps
+        mix_n = torch.from_numpy(rng.integers(29, 32, 64).astype(
+            np.int32)).to(self.dev)
+        mix_h = torch.from_numpy(rng.integers(28, 33, 4097).astype(
+            np.int32)).to(self.dev)
+        for qn, cn in ((33, 129), (64, 4097)):
+            for side in ("both", "ab", "ba"):
+                args = (nc[:qn], mix_n[:qn], hc[:cn], mix_h[:cn], hv[:cn])
+                got = cs.color_scores(*args, side=side)
+                torch.cuda.synchronize()
+                want = cs.color_scores_plain(*args, side=side)
+                err = max(err, self.same(got, want, f"K6 {side} mixed warps "
+                                                    f"q={qn} c={cn}"))
+                checks += 1
+        # the one-sided launch of color -similar: needles against a window
+        # of K6_WINDOW rows, each side timed, and its first K6_WINDOW_CHECKED
+        # needles' scores checked (the plain twin scores ~4e6 pairs a second)
+        one = {}
+        for side in ("ab", "ba"):
+            args = (nc, nn, hc[:K6_WINDOW], hn[:K6_WINDOW], hv[:K6_WINDOW])
+            buf = torch.empty((q, K6_WINDOW), dtype=torch.float32,
+                              device=self.dev)
+            one[side] = self.event_ms(lambda: cs.color_scores(
+                *args, side=side, out=buf), 3)
+            sub = K6_WINDOW_CHECKED
+            err = max(err, self.same(buf[:sub], cs.color_scores_plain(
+                nc[:sub], nn[:sub], *args[2:], side=side),
+                f"K6 {side} at {q} x {K6_WINDOW}"))
+            checks += 1
+            one[f"{side}_work"] = self.k6_work(nn, hn[:K6_WINDOW],
+                                               hv[:K6_WINDOW], side)
+            del buf
         args = (nc, nn, hc[:c], hn[:c], hv[:c])
         buf = torch.empty((q, c), dtype=torch.float32, device=self.dev)
         ms = self.event_ms(lambda: cs.color_scores(*args, out=buf), 3)
@@ -2413,22 +2464,28 @@ class Smoke:
         cdist_ms = self.event_ms(lambda: torch.cdist(ya, yb), 5)
         k6_small = self.event_ms(lambda: cs.color_scores(
             nc[:64], nn[:64], hc[:1024], hn[:1024], hv[:1024]), 5)
-        rate, probed = self.k6_rate()
+        probed = self.k6_rate()
+        w = K6_WINDOW
         self.kernels["K6"].update(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
             cdist_yardstick_ms=cdist_ms, ms_at_cdist_shape=k6_small,
-            fp32_rate_per_clk_sm=rate, probed_k6_step_per_clk_sm=probed,
-            shape=f"Q={q} C={c} (two-sided)")
+            probed_k6_step_per_clk_sm=probed,
+            shape=f"Q={q} C={c} (two-sided)", ab_window_ms=one["ab"],
+            ba_window_ms=one["ba"], window_shape=f"Q={q} C={w} (one-sided)")
         work = self.k6_work(nn, hn[:c], hv[:c])
-        self.bound(self.kernels["K6"], "bound_ms", "bound_by",
-                   fp32_rate=rate, **work)
+        self.bound(self.kernels["K6"], "bound_ms", "bound_by", **work)
+        for side in ("ab", "ba"):
+            self.bound(self.kernels["K6"], f"{side}_window_bound_ms",
+                       **one[f"{side}_work"])
         out = {"K6_checks": checks, "K6_max_abs_err": err,
                "K6_ms": round(ms, 4), "K6_plain_ms": round(plain_ms, 4),
+               "K6_ab_window_ms": round(one["ab"], 4),
+               "K6_ba_window_ms": round(one["ba"], 4),
                "K6_cdist_64x1024_ms": round(cdist_ms, 4),
                "K6_64x1024_ms": round(k6_small, 4),
                "K6_probed_step_per_clk_sm": round(probed, 2),
-               "K6_shape": f"Q={q} C={c}"}
-        self.bound(out, "K6_bound_ms", fp32_rate=rate, **work)
+               "K6_shape": f"Q={q} C={c}; one-sided Q={q} C={w}"}
+        self.bound(out, "K6_bound_ms", **work)
         return out
 
     def color_groups(self, descs, rng):

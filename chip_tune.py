@@ -1,11 +1,14 @@
 """Block shapes of the top-k scan (K4) and the band counts (K3), and the
-forms of the tensor-core count (K1-mma), measured on one NVIDIA GPU.
+forms of the tensor-core count (K1-mma), the 256-bit k-nearest search (K5)
+and the chamfer color score (K6), and the forms of the color descriptor's
+exact fma (``ops/exact32.py``), measured on one NVIDIA GPU.
 
-    python3 chip_tune.py [k4] [k3] [mma] [k5]     (default: all four)
+    python3 chip_tune.py [k4] [k3] [mma] [k5] [k6] [fma]   (default: all)
 
 Writes every variant below of ``csrc/hamming_topk.cu``,
-``csrc/band_count.cu``, ``csrc/count_below_mma.cu`` and
-``csrc/hamming_lanes_topk.cu`` to ``build/tune/``
+``csrc/band_count.cu``, ``csrc/count_below_mma.cu``,
+``csrc/hamming_lanes_topk.cu`` and ``csrc/color_scores.cu`` to
+``build/tune/``
 (a copy of the source with its shape constants edited, or parts of its
 code replaced by the text this script holds; the package always builds
 the sources as they are), builds them with
@@ -49,6 +52,34 @@ reported and left out (the run then exits non-zero):
       conflicts on its stores).  Timed-only forms at bound 25: no
       epilogue; no products (zero sums); no unpack and no epilogue; the
       ring alone (a sum kept alive where the epilogue goes).
+  k6  K6 on chip_smoke's operands: two-sided at Q=1024 x C=2^18 (the
+      timed shape), the same with every needle at 30 colors (nearly every
+      warp's rows straddle the needle's count), and one-sided "ab" and
+      "ba" at 1024 x 65536 (color -similar's launch).  The source is
+      checked against the plain twin on the first 4096 rows of each, the
+      forms against the source.  Forms: both sums in one pass for every
+      two-sided warp (no vote); a row a thread on every side (the "ba"
+      side too); a row on two threads of 16 colors on every side, with
+      and without the vote; needle tiles of 16 and 64; 256 threads a
+      block; the registers capped for 3 and 4 blocks an SM.  Timed only: the
+      form of commit K6_OLD (unfused d2, a predicate a color pair, a
+      runtime loop with a shared load a pair on the "ba" side), whose
+      scores round otherwise (its source from ``git show``, kept in
+      ``build/tune/`` for a copy without git).  Each form's registers and
+      spills as ptxas reports them.
+  fma ``fma32``'s forms on the card, no kernel built: the squared
+      distance of three differences (two nested fmas, as the descriptor
+      takes it) at the descriptor's shapes, the center shift's [16, 32],
+      the k-means++ seeding's [16, 2^16, 1] and a Lloyd step's [16, 2^16,
+      32], and at [16, 2^16, 4 / 8 / 16] between them, the dense form
+      checked equal to the sparse one, each timed on the host's clock (20
+      calls, then a sync; two rounds, the forms in turn) beside the float64
+      sum rounded again (timed only);
+      then create_descriptors of chip_smoke's first 256 cdesc images with
+      fma32 taking the sparse form at every size, the dense form under
+      FMA_CUTS' sizes, and the dense form at every size (descriptors
+      checked equal), and, timed only, the float64 sum rounded once more
+      to float32 (the double rounding the port took before exact32).
 
 The first variant of each list is the shape the sources hold.  Prints
 the card's name and power limit, then one JSON line per variant.  Exits
@@ -466,16 +497,50 @@ K5_DIAG = {
 }
 K5_FORMS = {**K5_VARIANTS, **K5_DIAG}
 
+# K6 (color_scores.cu)
+K6_SOURCE = ("source: needle tiles of 32, warp vote, a row a thread "
+             "(two on the \"ba\" side)")
+K6_SPLIT = "const int split = side == 2 ? 2 : 1;"
+K6_NO_VOTE = ("    float s_ab = 0.f, s_ba = 0.f;",
+              "    if (two && mode) mode = 3;\n"
+              "    float s_ab = 0.f, s_ba = 0.f;")
+K6_ONE = (K6_SPLIT, "const int split = 1;")
+K6_TWO = (K6_SPLIT, "const int split = 2;")
+K6_VARIANTS = {
+    K6_SOURCE: (),
+    "both sums, no vote": (K6_NO_VOTE,),
+    "a row a thread on every side": (K6_ONE,),
+    "two threads a row on every side": (K6_TWO,),
+    "two threads a row on every side, both sums": (K6_TWO, K6_NO_VOTE),
+    "needle tiles of 16": (("constexpr int QT = 32;",
+                            "constexpr int QT = 16;"),),
+    "needle tiles of 64": (("constexpr int QT = 32;",
+                            "constexpr int QT = 64;"),),
+    "256 threads": (("constexpr int THREADS = 128;",
+                     "constexpr int THREADS = 256;"),),
+    "3 blocks an SM": (("__launch_bounds__(THREADS)",
+                        "__launch_bounds__(THREADS, 3)"),),
+    "4 blocks an SM": (("__launch_bounds__(THREADS)",
+                        "__launch_bounds__(THREADS, 4)"),),
+}
+# the form before this design, timed only (its d2 is unfused)
+K6_OLD = "c2e23a7"
+K6_OLD_FORM = f"commit {K6_OLD} (timed only)"
+PTXAS: dict = {}  # (source name, form) -> ptxas's registers and spills
 
-def build_variant(name: str, edits: tuple) -> str:
-    """``csrc/<name>.cu`` with each edit made in turn (its text must
-    occur): (old, new) replaces old; ((begin, end), new) replaces the text
-    from begin up to end.  Compiled as the package compiles it, into
-    ``build/tune/``.
+
+def build_variant(name: str, edits: tuple, src: str | None = None,
+                  ptxas: tuple | None = None) -> str:
+    """``csrc/<name>.cu`` (or ``src``) with each edit made in turn (its
+    text must occur): (old, new) replaces old; ((begin, end), new)
+    replaces the text from begin up to end.  Compiled as the package
+    compiles it, into ``build/tune/``; with ``ptxas`` set, ptxas's
+    registers and spills go to ``PTXAS[ptxas]``.
     @return the library path"""
     from cbird_tpu_torch import _build
-    with open(os.path.join(_build.CSRC, f"{name}.cu")) as f:
-        src = f.read()
+    if src is None:
+        with open(os.path.join(_build.CSRC, f"{name}.cu")) as f:
+            src = f.read()
     for old, new in edits:
         if isinstance(old, tuple):
             i = src.find(old[0])
@@ -492,12 +557,38 @@ def build_variant(name: str, edits: tuple) -> str:
         src.encode()).hexdigest()[:16])
     with open(stem + ".cu", "w") as f:
         f.write(src)
-    proc = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o",
-                           stem + ".so", stem + ".cu"],
+    flags = [*_build.NVCC_FLAGS, "-Xptxas", "-v"] if ptxas else \
+        _build.NVCC_FLAGS
+    proc = subprocess.run([_build.nvcc(), *flags, "-o", stem + ".so",
+                           stem + ".cu"],
                           capture_output=True, text=True, timeout=600)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for {stem}.cu:\n{proc.stderr}")
+    if ptxas:
+        PTXAS[ptxas] = [ln.split(":", 1)[-1].strip() for ln in
+                        proc.stderr.splitlines()
+                        if "registers" in ln or "spill" in ln]
     return stem + ".so"
+
+
+def k6_old_source() -> str:
+    """color_scores.cu at commit K6_OLD: from git, kept in build/tune/ so
+    that a copy of the tree without git finds it."""
+    from cbird_tpu_torch import _build
+    keep = os.path.join(os.path.dirname(_build.BUILD_DIR), "tune",
+                        f"color_scores-{K6_OLD}.cu")
+    try:
+        src = subprocess.run(
+            ["git", "show", f"{K6_OLD}:cbird_tpu_torch/csrc/color_scores.cu"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), check=True,
+            capture_output=True, text=True, timeout=60).stdout
+    except (OSError, subprocess.SubprocessError):
+        with open(keep) as f:
+            return f.read()
+    os.makedirs(os.path.dirname(keep), exist_ok=True)
+    with open(keep, "w") as f:
+        f.write(src)
+    return src
 
 
 def scan_launch(torch, lib, nd, h, v, k: int, bound: int):
@@ -523,8 +614,8 @@ def scan_launch(torch, lib, nd, h, v, k: int, bound: int):
 
 def main() -> int:
     import torch
-    parts = sys.argv[1:] or ["k4", "k3", "mma", "k5"]
-    if not set(parts) <= {"k4", "k3", "mma", "k5"}:
+    parts = sys.argv[1:] or ["k4", "k3", "mma", "k5", "k6", "fma"]
+    if not set(parts) <= {"k4", "k3", "mma", "k5", "k6", "fma"}:
         print(f"chip_tune: unknown parts {parts}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -533,6 +624,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import chip_smoke
     from cbird_tpu_torch.ops import band_count as bc
+    from cbird_tpu_torch.ops import color_scores as cs
     from cbird_tpu_torch.ops import count_below_mma as cm
     from cbird_tpu_torch.ops import hamming_lanes as hl
     from cbird_tpu_torch.ops import hamming_topk as tk
@@ -542,18 +634,26 @@ def main() -> int:
             + [("band_count", v) for v in K3_VARIANTS] * ("k3" in parts)
             + [("count_below_mma", v) for v in MMA_FORMS]
             * ("mma" in parts)
-            + [("hamming_lanes_topk", v) for v in K5_FORMS] * ("k5" in parts))
+            + [("hamming_lanes_topk", v) for v in K5_FORMS] * ("k5" in parts)
+            + [("color_scores", v) for v in [*K6_VARIANTS, K6_OLD_FORM]]
+            * ("k6" in parts))
     edits = {"hamming_topk": k4_edits, "band_count": k3_edits,
              "count_below_mma": MMA_FORMS.get,
-             "hamming_lanes_topk": K5_FORMS.get}
+             "hamming_lanes_topk": K5_FORMS.get,
+             "color_scores": lambda v: K6_VARIANTS.get(v, ())}
+
     def build(job):
         try:
+            if job[0] == "color_scores":
+                return build_variant(
+                    job[0], edits[job[0]](job[1]), ptxas=job,
+                    src=k6_old_source() if job[1] == K6_OLD_FORM else None)
             return build_variant(job[0], edits[job[0]](job[1]))
         except RuntimeError as e:  # a form the compiler refuses
             print(f"chip_tune: {job[0]} {job[1]}: {str(e)[-600:]}",
                   file=sys.stderr)
             return None
-    with cf.ThreadPoolExecutor(len(jobs)) as ex:
+    with cf.ThreadPoolExecutor(max(1, len(jobs))) as ex:
         paths = list(ex.map(build, jobs))
     libs = {}
     for (name, v), path in zip(jobs, paths):
@@ -562,6 +662,8 @@ def main() -> int:
                 MMA_FORMS.pop(v, None)
             if name == "hamming_lanes_topk":
                 K5_FORMS.pop(v, None)
+            if name == "color_scores":
+                K6_VARIANTS.pop(v, None)
             continue
         lib = ctypes.CDLL(path)
         if name == "hamming_topk":
@@ -574,9 +676,12 @@ def main() -> int:
         elif name == "count_below_mma":
             lib.cbird_count_below_mma.argtypes = cm._ARGTYPES
             lib.cbird_count_below_mma.restype = ctypes.c_int
-        else:
+        elif name == "hamming_lanes_topk":
             lib.cbird_lanes_topk.argtypes = hl._ARGS
             lib.cbird_lanes_topk.restype = ctypes.c_int
+        else:
+            lib.cbird_color_scores.argtypes = cs._ARGS
+            lib.cbird_color_scores.restype = ctypes.c_int
         lib.cbird_error_string.argtypes = [ctypes.c_int]
         lib.cbird_error_string.restype = ctypes.c_char_p
         libs[(name, v)] = lib
@@ -589,7 +694,167 @@ def main() -> int:
         ok &= tune_mma(torch, s, libs)
     if "k5" in parts:
         ok &= tune_k5(torch, s, libs)
+    if "k6" in parts:
+        ok &= tune_k6(torch, s, libs)
+    if "fma" in parts:
+        ok &= tune_fma(torch, s)
     return 0 if ok else 1
+
+
+# fma32 on the card: the size below which it takes the dense form
+FMA_CUTS = {"sparse at every size": 0, "dense under 2^23": 1 << 23,
+            "dense at every size": 1 << 62}
+
+
+def fma_form(cut: int):
+    """fma32 taking the dense form below ``cut`` entries, else the
+    sparse one."""
+    from cbird_tpu_torch.ops import exact32
+
+    def fma(a, b, c):
+        a, b, c, shape = exact32._operands(a, b, c)
+        form = exact32._fma32_dense if shape.numel() < cut else \
+            exact32._fma32_sparse
+        return form(a, b, c, shape)
+    return fma
+
+
+def fma_twice(a, b, c):
+    """The float64 sum rounded again to float32 (it rounds twice)."""
+    from cbird_tpu_torch.ops import exact32
+    a, b, c, _ = exact32._operands(a, b, c)
+    dev = next(t.device for t in (a, b, c) if t.dim())
+    return (a.to(dev).double() * b.to(dev).double() + c.to(dev)).float()
+
+
+def tune_fma(torch, s) -> bool:
+    """fma32's forms against each other (module docstring)."""
+    import time
+    import chip_smoke
+    from cbird_tpu_torch.ops import color
+    ok = True
+    rng = np.random.default_rng(chip_smoke.SEED + 33)
+    forms = {"sparse": fma_form(0), "dense": fma_form(1 << 62),
+             "rounded twice (timed only)": fma_twice}
+    for shape in ((16, 32), (16, 1 << 16, 1), (16, 1 << 16, 4),
+                  (16, 1 << 16, 8), (16, 1 << 16, 16), (16, 1 << 16, 32)):
+        d = [torch.from_numpy((rng.standard_normal(shape) * 40).astype(
+            np.float32)).cuda() for _ in range(3)]
+
+        def sq3(f, d=d):
+            return f(d[2], d[2], f(d[1], d[1], d[0] * d[0]))
+        outs = {m: sq3(forms[m]) for m in ("sparse", "dense")}
+        if not torch.equal(outs["dense"], outs["sparse"]):
+            print(f"chip_tune: fma32's forms differ at {shape}",
+                  file=sys.stderr)
+            ok = False
+        ms: dict = {m: [] for m in forms}
+        for _ in range(2):
+            for m, f in forms.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    sq3(f)
+                torch.cuda.synchronize()
+                ms[m].append((time.perf_counter() - t0) / 20 * 1e3)
+        print(json.dumps({"fma": "two nested fmas", "shape": list(shape),
+                          "host_ms_a_call": ms}), flush=True)
+    imgs = s.color_images(chip_smoke.CDESC_IMAGES,
+                          np.random.default_rng(chip_smoke.SEED + 31))[:256]
+    runs = {**{m: fma_form(cut) for m, cut in FMA_CUTS.items()},
+            "float64 sum rounded again (timed only)": fma_twice}
+    keep = color.fma32
+    ms = {m: [] for m in runs}
+    descs = {}
+    try:
+        color.fma32 = fma_form(0)
+        color.create_descriptors(imgs[:16], device=s.dev)  # warm-up
+        for _ in range(2):
+            for m, f in runs.items():
+                color.fma32 = f
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                descs[m] = color.create_descriptors(imgs, device=s.dev)
+                ms[m].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        color.fma32 = keep
+    ref = descs["sparse at every size"]
+    for m in FMA_CUTS:
+        if not all((x is None and y is None) or np.array_equal(x, y)
+                   for x, y in zip(descs[m], ref)):
+            print(f"chip_tune: descriptors differ under {m}",
+                  file=sys.stderr)
+            ok = False
+    for m in runs:
+        print(json.dumps({"fma": f"create_descriptors of {len(imgs)} images",
+                          "form": m, "checked": m in FMA_CUTS,
+                          "wall_ms": ms[m]}), flush=True)
+    return ok
+
+
+def tune_k6(torch, s, libs) -> bool:
+    """K6's forms against each other (module docstring)."""
+    import chip_smoke
+    from cbird_tpu_torch import _build
+    from cbird_tpu_torch.ops import color_scores as cs
+    nc, nn, hc, hn, hv = s.k6_operands(
+        np.random.default_rng(chip_smoke.SEED + 30))
+    q, c = chip_smoke.K6_TIMED
+    w = chip_smoke.K6_WINDOW
+    shapes = {  # name -> (needle counts, rows, side)
+        f"Q={q} C=2^18 two-sided": (nn, c, "both"),
+        f"Q={q} C=2^18 two-sided, needles at 30": (torch.full_like(nn, 30),
+                                                   c, "both"),
+        f"Q={q} C={w} ab": (nn, w, "ab"),
+        f"Q={q} C={w} ba": (nn, w, "ba")}
+    stream = torch.cuda.current_stream().cuda_stream
+    ok = True
+    forms = [*K6_VARIANTS, *([K6_OLD_FORM] * (("color_scores", K6_OLD_FORM)
+                                              in libs))]
+    times = {m: {} for m in forms}
+    for shape, (cnt, cols, side) in shapes.items():
+        outs = {m: torch.empty((q, cols), dtype=torch.float32,
+                               device="cuda") for m in forms}
+
+        def launch(m, cols=cols):
+            lib = libs[("color_scores", m)]
+            return lambda: _build.check(lib, lib.cbird_color_scores(
+                nc.data_ptr(), cnt.data_ptr(), q, hc.data_ptr(),
+                hn.data_ptr(), hv.data_ptr(), cols, cs.SIDES[side], 0, 0,
+                cs._NO_LIMIT, outs[m].data_ptr(), cols, stream),
+                "color_scores")
+        for m in list(forms):
+            try:
+                launch(m)()
+                torch.cuda.synchronize()
+            except RuntimeError as e:  # a form the card refuses
+                print(f"chip_tune: K6 {m}: {e}", file=sys.stderr)
+                ok = False
+                del times[m]
+                forms.remove(m)
+        want = cs.color_scores_plain(nc, cnt, hc[:4096], hn[:4096],
+                                     hv[:4096], side)
+        if not torch.equal(outs[K6_SOURCE][:, :4096], want):
+            print(f"chip_tune: K6 differs from the plain twin at {shape}",
+                  file=sys.stderr)
+            ok = False
+        for m in forms:
+            if m in K6_VARIANTS and not torch.equal(outs[m],
+                                                     outs[K6_SOURCE]):
+                print(f"chip_tune: K6 {m} differs at {shape}",
+                      file=sys.stderr)
+                ok = False
+        for _ in range(2):
+            for m in forms:
+                times[m].setdefault(shape, []).append(s.event_ms(launch(m),
+                                                                 3))
+        outs.clear()
+    for m in times:
+        print(json.dumps({"kernel": "K6", "form": m,
+                          "checked": m in K6_VARIANTS,
+                          "ptxas": PTXAS.get(("color_scores", m)),
+                          "ms": times[m]}), flush=True)
+    return ok
 
 
 def tune_k5(torch, s, libs) -> bool:

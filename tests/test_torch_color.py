@@ -14,8 +14,9 @@ Tolerances, each with its cause:
   float lies on a quantization edge (a center or a weight sum an ulp
   from XLA's: XLA's float32 cluster sums against the port's exact ones,
   and the cube root).
-- scores: the port sums the 32 minima in ascending order, XLA in its own:
-  relative 1e-6; row indices equal.
+- scores: bit-equal.  XLA's CPU contracts d2 as ``fma(dv, dv, fma(dl,
+  dl, du * du))`` and sums the minima in ascending color order; the port
+  does the same with an fma rounded once (``ops/exact32.py``).
 """
 
 import contextlib
@@ -23,6 +24,7 @@ import io
 import json
 import os
 import sqlite3
+from fractions import Fraction
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +41,7 @@ from cbird_tpu_torch.cli import main as port_cli
 from cbird_tpu_torch.index.color_desc_index import ColorDescIndex
 from cbird_tpu_torch.ops import color as pc
 from cbird_tpu_torch.ops import color_scores as cs
+from cbird_tpu_torch.ops import exact32
 from cbird_tpu_torch.ops import prng
 from cbird_tpu_torch.params import SearchParams
 from cbird_tpu_torch.store.media import Media
@@ -48,7 +51,6 @@ from fixtures import make_corpus
 torch.set_num_threads(1)
 
 SEEDS = (0, 1, 12345, 2**31 + 5, 0xFFFFFFFF)
-SCORE_RTOL = 1e-6
 
 
 @pytest.fixture(autouse=True)
@@ -284,7 +286,7 @@ def test_plain_scores_match_jax(side):
     """K6's plain twin against ``_color_scores`` / ``_color_scores_oneside``
     (the latter with color_self_block's mask: a row window, counts > 0):
     counts 0, 1, 28-32, |difference| 2 and 3, invalid rows; the same
-    rejections, scores within SCORE_RTOL."""
+    rejections, scores bit-equal."""
     nc, nn, _ = store_data(9, seed=1)
     nn[:4] = (0, 1, 30, 31)
     hc, hn, hv = store_data(200, seed=2)
@@ -299,7 +301,7 @@ def test_plain_scores_match_jax(side):
     bad = want >= cs.BAD_SCORE
     assert np.array_equal(bad, got >= cs.BAD_SCORE)
     assert 0 < bad.sum() < bad.size
-    np.testing.assert_allclose(got[~bad], want[~bad], rtol=SCORE_RTOL)
+    assert np.array_equal(got, want)
     # the wrapper runs the plain twin on CPU tensors, into a wider buffer
     buf = torch.zeros((9, 210))
     cs.color_scores(*map(torch.from_numpy, (nc, nn, hc, hn, hv)), side=side,
@@ -311,7 +313,7 @@ def test_plain_scores_match_jax(side):
 def test_color_topk_matches_jax(n, k):
     """``color_topk`` at chunk 64: several chunks and a ragged last one
     (300 rows), and k past the rows (50 rows, one top-k): row indices
-    equal, BAD slots included; scores within SCORE_RTOL."""
+    and scores equal, BAD slots included."""
     nc, nn, _ = store_data(7, seed=3)
     nn[:3] = (0, 31, 30)
     hc, hn, hv = store_data(n, seed=4, dups=n // 10)
@@ -323,7 +325,145 @@ def test_color_topk_matches_jax(n, k):
     ps, pi = pc.color_topk(*map(torch.from_numpy, (nc, nn, hc, hn, hv)),
                            k=k, chunk=64)
     assert np.array_equal(pi.numpy(), ji)
-    np.testing.assert_allclose(ps.numpy(), js, rtol=SCORE_RTOL)
+    assert np.array_equal(ps.numpy(), js)
+
+
+def _round32(x: Fraction) -> np.float32:
+    """The float32 nearest an exact rational, ties to even."""
+    f = np.float32(float(x))
+    near = (f, np.nextafter(f, np.float32(np.inf)),
+            np.nextafter(f, np.float32(-np.inf)))
+    return min(near, key=lambda v: (abs(Fraction(float(v)) - x),
+                                    int(np.array(v).view(np.int32)) & 1))
+
+
+def test_exact32_rounds_once():
+    """``fma32``, in its sparse and its dense form, equals ``a * b + c``
+    taken exactly (``Fraction``) and rounded once to float32: on random
+    triples of mixed magnitudes and signs (results in float32's normal
+    range, its domain) and on triples whose float64 sum lies on a float32
+    midpoint (c with an odd last bit, a * b half its ulp less 2^-46 of
+    that), where the float64 sum rounded again to float32 is an ulp off.
+    ``sqrt32`` is the float32 nearest the root."""
+    rng = np.random.default_rng(11)
+    n, m = 2000, 500
+    a, b, c = ((rng.standard_normal(n) * rng.choice(sc, n)).astype(np.float32)
+               for sc in ([1e-3, 1, 1e3], [1e-3, 1, 1e3], [1e-6, 1, 1e6]))
+    sign = rng.choice([-1, 1], m).astype(np.float32)
+    c_mid = np.abs(rng.standard_normal(m) * rng.choice([1e-3, 1, 1e3], m))
+    c_mid = (c_mid.astype(np.float32).view(np.int32) | 1).view(np.float32)
+    ulp = np.nextafter(c_mid, np.float32(np.inf)) - c_mid
+    a_mid = (ulp / 2 * np.float32(1 + 2**-23) * sign).astype(np.float32)
+    b_mid = np.full(m, 1 - 2**-23, np.float32)
+    c_mid = c_mid * sign
+    a, b, c = (np.concatenate(v) for v in ((a, a_mid), (b, b_mid),
+                                           (c, c_mid)))
+    want = np.array([_round32(Fraction(float(x)) * Fraction(float(y))
+                              + Fraction(float(z)))
+                     for x, y, z in zip(a, b, c)], np.float32)
+    ops = exact32._operands(*map(torch.from_numpy, (a, b, c)))
+    for form in (exact32._fma32_sparse, exact32._fma32_dense):
+        got = form(*ops).numpy()
+        assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    assert np.array_equal(exact32.fma32(*map(torch.from_numpy,
+                                             (a, b, c))).numpy(), want)
+    twice = (a[n:].astype(np.float64) * b[n:] + c[n:]).astype(np.float32)
+    assert not np.any(twice == want[n:])
+    want = _round32(Fraction(float(np.float32(0.1))) * 3 / 2 + 1)
+    for form in (exact32._fma32_sparse, exact32._fma32_dense):
+        ops = exact32._operands(0.1, torch.full((3,), 1.5), 1.0)
+        got = form(*ops)  # Python numbers as float32, the result float32
+        assert got.dtype == torch.float32 and got.shape == (3,)
+        assert (got == float(want)).all()
+    x = (rng.random(n) * rng.choice([1e-4, 1, 1e4], n)).astype(np.float32)
+    r = exact32.sqrt32(torch.from_numpy(x)).numpy()
+    for v, rv in zip(x, r):  # the root lies within half an ulp of r
+        half = Fraction(float(np.nextafter(rv, np.float32(np.inf)) - rv)) / 2
+        assert (Fraction(float(rv)) - half) ** 2 <= Fraction(float(v)) \
+            <= (Fraction(float(rv)) + half) ** 2
+
+
+def _padded_sums(nc, nn, hc, hn):
+    """Both directed sums as K6 takes them: a row's slots at or past its
+    count hold its color 0; "ab" the minimum over all 32 slots after each
+    needle color, added in order; "ba" 32 column minima over the needle's
+    colors, added for j in ascending order, +0.0 for a padded slot.
+    @return (s_ab, s_ba) [Q, C]"""
+    hc = torch.where(torch.arange(32)[None, :, None] < hn[:, None, None],
+                     hc, hc[:, :1])
+    s_ab = torch.zeros((len(nc), len(hc)))
+    cm = torch.full((len(nc), len(hc), 32), float(cs.BAD_SCORE))
+    for i in range(32):
+        dl, du, dv = (nc[:, i, k][:, None, None] - hc[None, :, :, k]
+                      for k in range(3))
+        d2 = exact32.fma32(dv, dv, exact32.fma32(dl, dl, du * du))
+        on = (i < nn)[:, None]
+        s_ab = torch.where(on, s_ab + cs._finish(d2.amin(2)), s_ab)
+        cm = torch.where(on[..., None], torch.minimum(cm, d2), cm)
+    f = torch.where(torch.arange(32) < hn[:, None], cs._finish(cm), 0.0)
+    s_ba = torch.zeros_like(s_ab)
+    for j in range(32):
+        s_ba = s_ba + f[:, :, j]
+    return s_ab, s_ba
+
+
+def test_padded_counts_match_jax():
+    """Counts 1, 2, 31 and 32 in every warp of rows, rows and needles whose
+    32 slots are one color, and 25 rows tied at a needle's best score
+    across a chunk edge and the k boundary: K6's plain twin equals the JAX
+    package's scores bit for bit (two-sided, "ab", "ba"), so does the
+    order of work of the kernel (its padded slots, its sums), and
+    ``color_topk`` equals the JAX ``color_topk`` in ids and scores."""
+    hc, hn, hv = store_data(96, seed=13)
+    hv[:] = True
+    hn[:64] = np.tile((1, 2, 31, 32), 16)
+    hc[64:72] = hc[64, :1]  # one color in all 32 slots
+    hn[64:72] = (1, 2, 5, 31, 32, 32, 30, 3)
+    hc[72:], hn[72:] = hc[10], hn[10]  # ties with row 10 (count 31)
+    nc, nn, _ = store_data(10, seed=14)
+    nn[:] = (1, 2, 31, 32, 32, 5, 31, 2, 31, 32)
+    nc[4:6] = nc[4, :1]
+    nc[6:8] = hc[64]
+    nc[8] = hc[10]
+    args = [torch.from_numpy(v) for v in (nc, nn, hc, hn, hv)]
+    s_ab, s_ba = _padded_sums(*args[:4])
+    for side in ("both", "ab", "ba"):
+        want = _jax_scores(nc, nn, hc, hn, hv, side)
+        got = cs.color_scores_plain(*args, side=side).numpy()
+        assert np.array_equal(got, want), side
+        model = 1.0 + (s_ab if side == "ab" else s_ba)
+        if side == "both":
+            model = torch.where(args[1][:, None] >= args[3][None, :],
+                                1.0 + s_ab, 1.0 + s_ba)
+        live = got < cs.BAD_SCORE
+        assert live.sum() > 200, side
+        assert np.array_equal(model.numpy()[live], got[live]), side
+    js, ji = (np.asarray(v) for v in jc.color_topk(nc, nn, hc, hn, hv,
+                                                   k=16, chunk=32))
+    ps, pi = pc.color_topk(*args, k=16, chunk=32)
+    assert (js[8] == js[8, 0]).all()  # the tie fills k
+    assert np.array_equal(pi.numpy(), ji) and np.array_equal(ps.numpy(), js)
+
+
+@pytest.mark.parametrize("side", ["ab", "ba"])
+def test_color_self_block_matches_jax(side):
+    """``color_self_block`` against the jitted JAX one (its chunks' top-k
+    in a ``scan``): a 256-row window of a count-sorted store in chunks of
+    64, rows outside [lo, hi) masked: the same scores and sorted-order
+    indices, bit for bit."""
+    hc, hn, hv = store_data(600, seed=15, dups=60)
+    order = np.argsort(hn, kind="stable")
+    hc, hn, hv = hc[order], hn[order], hv[order]
+    nc, nn = hc[500:516].copy(), hn[500:516].copy()
+    start, lo, hi = 256, 300, 470
+    js, ji = (np.asarray(v) for v in jc.color_self_block(
+        nc, nn, hc, hn, hv, np.int32(start), np.int32(lo), np.int32(hi),
+        k=12, side=side, super_chunk=256, chunk=64))
+    ps, pi = pc.color_self_block(
+        *map(torch.from_numpy, (nc, nn, hc, hn, hv)), start, lo, hi, k=12,
+        side=side, super_chunk=256, chunk=64)
+    assert (js < cs.BAD_SCORE).sum() > 50
+    assert np.array_equal(ps.numpy(), js) and np.array_equal(pi.numpy(), ji)
 
 
 def _descs(colors, counts, valid):
@@ -369,8 +509,8 @@ def test_search_self_matches_jax_topk(self_store, buckets, monkeypatch):
     """The bucketed and the scan ``search_self`` over 300 rows with planted
     near copies and tombstones: the same ids as the JAX ``color_topk`` of
     every row (no cluster holds more than k equal scores, where the
-    bucketed path's documented tie order would differ), scores within
-    SCORE_RTOL."""
+    bucketed path's documented tie order would differ), and the same
+    scores."""
     monkeypatch.setenv("CBIRD_COLOR_BUCKETS", buckets)
     k = 12
     got = self_store.search_self(k=k, sparse=True)
@@ -378,7 +518,7 @@ def test_search_self_matches_jax_topk(self_store, buckets, monkeypatch):
     assert sorted(got) == sorted(want)
     for r, (ids, scores) in want.items():
         assert np.array_equal(got[r][0], ids), r
-        np.testing.assert_allclose(got[r][1], scores, rtol=SCORE_RTOL)
+        assert np.array_equal(got[r][1], scores), r
     dense = self_store.search_self(k=k)
     assert len(dense) == 300 and np.array_equal(dense[5][0], got[5][0])
 
@@ -396,9 +536,8 @@ def test_bucketed_equals_scan(self_store, monkeypatch):
 
 
 def _same_matches(port_idx, jax_idx, needles, sp, jsp):
-    """find_batch of both indexes: equal ids; the stores' float scores
-    within SCORE_RTOL; an integer score (the float truncated) differs only
-    where the port's float lies within SCORE_RTOL of an integer."""
+    """find_batch of both indexes: equal ids, the stores' equal float
+    scores and equal integer scores (the float truncated)."""
     got = port_idx.find_batch([Media(id=i) for i in needles], sp)
     want = jax_idx.find_batch([JaxMedia(id=i) for i in needles], jsp)
     k = max(sp.maxMatches * 4, 64)
@@ -407,11 +546,9 @@ def _same_matches(port_idx, jax_idx, needles, sp, jsp):
     fj = jax_idx._store.search(descs, k=k)
     for g, w, (pi, ps), (ji, js) in zip(got, want, fp, fj):
         assert np.array_equal(pi, ji)
-        np.testing.assert_allclose(ps, js, rtol=SCORE_RTOL)
+        assert np.array_equal(ps, js)
         assert [m.mediaId for m in g] == [m.mediaId for m in w]
-        for m, n, f in zip(g, w, ps):
-            assert m.score == n.score or \
-                abs(f - round(f)) <= SCORE_RTOL * f, (m.score, n.score, f)
+        assert [m.score for m in g] == [m.score for m in w]
 
 
 def test_index_reads_jax_table(tmp_path):
@@ -522,16 +659,43 @@ def test_needles_and_mirror_of_color(color_corpus):
 # ---- on the card ---------------------------------------------------------------
 
 @pytest.mark.cuda
+def test_exact32_forms_on_card():
+    """``fma32``'s sparse and dense forms on the card equal the CPU's, with
+    tensors and Python numbers in every operand position (a number times
+    a tensor is taken as the tensor times the number)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    rng = np.random.default_rng(12)
+    t = [torch.from_numpy((rng.standard_normal(4096) * 30).astype(
+        np.float32)) for _ in range(3)]
+    for a, b, c in ((t[0], t[1], t[2]), (0.412453, t[1], t[2]),
+                    (t[0], 3.0, t[2]), (0.5, 0.25, t[2]), (t[0], t[0], 1.0),
+                    (116.0, t[1], -16.0)):
+        want = exact32.fma32(a, b, c)
+        on = [v.cuda() if isinstance(v, torch.Tensor) else v
+              for v in (a, b, c)]
+        for form in (exact32._fma32_sparse, exact32._fma32_dense):
+            got = form(*exact32._operands(*on))
+            assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("side", ["both", "ab", "ba"])
 def test_kernel_matches_plain_on_card(side):
     """K6 against its plain twin on the card, bit for bit, at needle and
-    row counts around its tiles (32 needles, 128 rows), with a row window,
+    row counts around its tiles (32 needles, 128 rows), with a row window;
+    in warps whose rows' counts straddle the needles' (rows of 28-32
+    colors, needles of 29-31: the two-sided form's warps of mixed sides);
     and the top-k with ties at the k boundary equal to the CPU's."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    for q, c in ((1, 1), (31, 127), (33, 129), (64, 1000)):
+    for q, c in ((1, 1), (31, 127), (33, 129), (64, 1000), (40, 4097)):
         nc, nn, _ = store_data(q, seed=q)
         hc, hn, hv = store_data(c, seed=c, dups=c // 10)
+        if c == 4097:  # straddling counts in every warp
+            rng = np.random.default_rng(c)
+            hn = rng.integers(28, 33, c).astype(np.int32)
+            nn = rng.integers(29, 32, q).astype(np.int32)
         args = [torch.from_numpy(a) for a in (nc, nn, hc, hn, hv)]
         kw = dict(side=side, lo=3, hi=c - 2, base=1) if side != "both" \
             else {}
