@@ -16,6 +16,10 @@ and the video algorithm:
   hashes their frames on the device; ``index/dct_video_index.py`` searches
   the packed frame store (``ops/video_search.py``) with the same count
   gate.
+- ``-p.tm``: ``host/template_matcher.py`` verifies candidates with ORB on
+  the device and a mutual match on the 256-bit k-nearest kernel
+  (``ops/hamming_lanes.py``); ``-serve`` and ``-browse`` (``cli/serve.py``,
+  ``cli/browser.py``) keep an engine resident.
 
 The package imports neither ``jax`` nor ``cbird_tpu``: it keeps its own
 copies of the JAX package's jax-free modules (params, store, index base
@@ -24,9 +28,10 @@ relative paths, so the SQLite schema, the ``_index/`` caches and ``.vdx``
 files stay byte-compatible between the two packages.
 
 Layer map:
-    cli/      ``cbird-torch``: the command-line interpreter on the Engine
+    cli/      ``cbird-torch``: the command-line interpreter on the Engine,
+              the query server and the result browser
     host/     engine, scanner (directory walk, decode, batched hashing),
-              video ingest, the NLE project export
+              video ingest, the template matcher, the NLE project export
     store/    SQLite database, media records, file digests, .vdx files,
               the index thumbnail
     index/    the index contract, the sidecar cache, the dct and video indexes

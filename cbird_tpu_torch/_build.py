@@ -9,7 +9,9 @@ build raises: there is no fallback.
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -80,6 +82,18 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build(name))
             _libs[name] = lib
         return lib
+
+
+def load_all() -> list[str]:
+    """Build every ``csrc/*.cu`` (one nvcc each, all at once) and load
+    each.  @return the kernel sources' names"""
+    names = sorted(os.path.basename(p)[:-3]
+                   for p in glob.glob(os.path.join(CSRC, "*.cu")))
+    with cf.ThreadPoolExecutor(max(1, len(names))) as ex:
+        list(ex.map(build, names))
+    for name in names:
+        load(name)
+    return names
 
 
 def load_kernel(name: str, fn: str, argtypes: list) -> ctypes.CDLL:

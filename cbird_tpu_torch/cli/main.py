@@ -9,10 +9,9 @@ reference (~/.config/cbird/args.txt then <index>/_index/args.txt then the
 command line).
 
 The port's ``Engine`` runs behind it, and ``-about`` reports torch and
-the CUDA device.  Verbs that need a module the port does not have yet
-(the template matcher, the quality score, the grid split, the browser and
-the query server) and ``-p.tm`` fail with "not ported yet" and exit
-code 2.
+the CUDA device.  Every verb of the JAX package's interpreter runs here,
+``-p.tm``, ``-serve`` (and ``-similar-to`` routed to it by
+``CBIRD_SERVER``) and ``-browse`` included.
 
 The device is CUDA unless ``CBIRD_TORCH_DEVICE=cpu`` selects the CPU.
 Run as ``cbird-torch ...`` or ``python -m cbird_tpu_torch.cli.main ...``.
@@ -29,7 +28,6 @@ import torch
 
 from .. import __version__
 from ..host.engine import Engine
-from ..host.scanner import NotPortedError
 from ..params import IndexParams, ParamError, SearchParams
 from ..store.media import Media, group_by, sort_group_list
 from ..utils.log import error, info, set_verbosity, warn
@@ -83,8 +81,8 @@ usage: cbird [args...]   (arguments are executed in order)
     -browse             interactive web browser for results (delete/weed
                         actions write back to the index; Quit to exit)
     -max-per-page <n>   groups per page in -browse (default 12)
-    -serve              resident query daemon (warm index + compiled
-                        programs; CBIRD_SERVE_ADDR=host:port to bind,
+    -serve              resident query daemon (index and kernels loaded
+                        on the card; CBIRD_SERVE_ADDR=host:port to bind,
                         clients set CBIRD_SERVER=host:port)
     -dump               print result groups as text
     -json               print result groups as JSON
@@ -158,14 +156,6 @@ _KNOWN_VERBS = [
 ]
 
 
-# verbs whose reference implementation needs a module the port does not
-# have yet (the quality score, the grid split, the browser, the query
-# server; -verify waits with them, queue 1 of ROADMAP.md)
-NOT_PORTED = {
-    "-browse", "-serve", "-verify", "-select-grid", "-qualityscore",
-}
-
-
 class Cli:
     def __init__(self, device=None):
         self._device = device
@@ -205,7 +195,7 @@ class Cli:
         except ParamError as e:
             error(str(e))
             return 2
-        except (FileNotFoundError, KeyError, NotPortedError) as e:
+        except (FileNotFoundError, KeyError) as e:
             error(str(e))
             return 2
         return self._rc
@@ -230,10 +220,6 @@ class Cli:
     # ---- dispatch --------------------------------------------------------
     def _dispatch(self, args: list[str], i: int) -> int:
         a = args[i]
-        if a in NOT_PORTED or (a == "-similar-to"
-                               and os.environ.get("CBIRD_SERVER")):
-            raise NotPortedError(f"{a} is not ported yet")
-
         if a in ("-h", "-help", "--help"):
             print(USAGE)
             return i + 1
@@ -264,8 +250,6 @@ class Cli:
 
         if a.startswith("-p."):
             self.search.set_param(a[3:], self._need(args, i, "a value"))
-            if self.search.templateMatch:
-                raise NotPortedError("-p.tm is not ported yet")
             return i + 2
         if a.startswith("-i."):
             self.index.set_param(a[3:], self._need(args, i, "a value"))
@@ -312,12 +296,30 @@ class Cli:
             info(f"removed {len(media)} items from index")
             return i + 2
 
+        if a == "-verify":
+            self._verify()
+            return i + 1
+
         if a == "-similar":
             self.result = self.engine().db.similar(self.search)
             info(f"{len(self.result)} groups")
             return i + 1
         if a == "-similar-to":
             target = os.path.abspath(self._need(args, i, "a file"))
+            server = os.environ.get("CBIRD_SERVER")
+            if server and not os.path.isdir(target):
+                # route to a resident -serve daemon: the index and
+                # the kernels stay loaded there
+                from .serve import QueryClient, remote_groups_to_media
+                c = QueryClient(server)
+                try:
+                    overrides = {k: v for k, v in self.search.changed_kv()}
+                    self.result = remote_groups_to_media(
+                        c.query(target, **overrides))
+                finally:
+                    c.close()
+                info(f"{sum(len(g) - 1 for g in self.result)} matches")
+                return i + 2
             if os.path.isdir(target):
                 # directory needle: query every indexed file under it
                 # (reference -similar-to <dir>, src/main.cpp:1104-1263)
@@ -556,6 +558,31 @@ complete -F _cbird_complete cbird""")
             self._compare_videos(os.path.abspath(f1),
                                  os.path.abspath(args[i + 2]))
             return i + 3
+        if a == "-select-grid":
+            # split a collage/mosaic file into cell images next to it
+            f = self._need(args, i, "an image file")
+            self._select_grid(os.path.abspath(f))
+            return i + 2
+
+        if a == "-qualityscore":
+            from ..ops.quality import quality_score
+            from ..store.jpeg_quality import estimate_jpeg_quality
+            from ..host.scanner import read_bytes
+            from PIL import Image as PILImage
+            import io as _io
+            import numpy as _np
+            for m in (self.selection or [x for g in self.result for x in g]):
+                try:
+                    data = read_bytes(m.path)
+                    img = _np.asarray(PILImage.open(_io.BytesIO(data)).convert("RGB"))
+                    score = quality_score(img)
+                    jq = estimate_jpeg_quality(data)
+                    jq_txt = f" jpeg-quality={jq}" if jq is not None else ""
+                    print(f"{m.path} quality={score}{jq_txt}")
+                except Exception as e:  # noqa: BLE001 — per-file diagnostics
+                    warn(f"qualityscore: {m.path}: {e}")
+            return i + 1
+
         if a == "-migrate":
             self._migrate()
             return i + 1
@@ -643,6 +670,30 @@ complete -F _cbird_complete cbird""")
             out = os.environ.get("CBIRD_REPORT",
                                  os.path.join(self.index_dir, "cbird-results.html"))
             write_report(self.result, out, title=f"cbird {self.index_dir}")
+            return i + 1
+        if a == "-serve":
+            # resident query daemon: the index and the kernels stay loaded
+            # on the engine's device (clients route via CBIRD_SERVER)
+            from .serve import parse_hostport, serve_cli
+            addr = os.environ.get("CBIRD_SERVE_ADDR", "127.0.0.1:0")
+            try:
+                host, port = parse_hostport(addr)
+            except ValueError as e:
+                raise ParamError(str(e)) from None
+            serve_cli(self.engine(), host, port)
+            return i + 1
+        if a == "-browse":
+            from .browser import serve_browser
+            sel = serve_browser(
+                self.engine().db, self.result,
+                title=f"cbird {self.index_dir}",
+                port=int(os.environ.get("CBIRD_BROWSER_PORT", "0")),
+                max_per_page=self._max_per_page,
+                engine=self.engine(), mode=self._show_mode,
+                exit_on_select=self._exit_on_select)
+            if self._exit_on_select:
+                # reference: select exits with the index, < 0 if canceled
+                self._rc = -1 if sel is None else int(sel)
             return i + 1
 
         if a in ("-test-csv", "-simtest"):  # -simtest: legacy usage.txt name
@@ -887,6 +938,39 @@ complete -F _cbird_complete cbird""")
         self.selection = ordered
         self.result = [ordered]
 
+    def _verify(self) -> None:
+        """Re-check stored md5 of every indexed file (reference -verify,
+        src/commands.cpp:574-638)."""
+        from ..store.ioutil import image_content_md5
+        from ..host.scanner import read_bytes
+        db = self.engine().db
+        bad = 0
+        for m in db.all_media():
+            try:
+                data = read_bytes(m.path)
+            except (OSError, KeyError):
+                warn(f"missing: {m.path}")
+                bad += 1
+                continue
+            if m.type == Media.TypeImage:
+                digest, _, _ = image_content_md5(data)
+            else:
+                from ..store.ioutil import full_md5
+                digest = full_md5(data)
+            if digest != m.md5:
+                warn(f"md5 mismatch: {m.path}")
+                bad += 1
+                # optional repair hook for damaged jpegs (reference -verify
+                # + -jpeg-repair-script, src/commands.cpp:574-638)
+                script = getattr(self, "_jpeg_repair_script", None)
+                if script and m.suffix() in ("jpg", "jpeg"):
+                    import subprocess
+                    try:
+                        subprocess.run([script, m.path], timeout=120, check=False)
+                    except (OSError, subprocess.SubprocessError) as e:
+                        warn(f"repair script failed: {e}")
+        info(f"verify: {bad} problems in {db.count()} items")
+
     def _test_image_search(self) -> None:
         """Self-recall harness (reference -test-image-search): re-decode
         and re-process every selected image as an unindexed needle, query
@@ -974,6 +1058,31 @@ complete -F _cbird_complete cbird""")
             warn(f"merge: {unmatched} items could not be placed")
         self.selection = merged
         self.result = [merged] if merged else []
+
+    def _select_grid(self, path: str) -> None:
+        """Detect a collage grid and write each cell as its own image
+        (reference -select-grid / demosaicHough)."""
+        import io as _io
+        import numpy as _np
+        from PIL import Image as PILImage
+        from ..host.scanner import read_bytes
+        from ..ops.demosaic import brightness_contrast_auto, demosaic_rects
+        img = PILImage.open(_io.BytesIO(read_bytes(path))).convert("RGB")
+        arr = _np.asarray(img)
+        gray = _np.asarray(img.convert("L"))
+        rects = demosaic_rects(brightness_contrast_auto(gray))
+        if not rects:
+            warn(f"no grid detected in {path}")
+            return
+        stem, _, suffix = os.path.basename(path).rpartition(".")
+        outdir = os.path.dirname(path)
+        self.selection = []
+        for n, (t, b, l, r) in enumerate(rects):
+            out = os.path.join(outdir, f"{stem}-cell{n:02d}.{suffix or 'png'}")
+            PILImage.fromarray(arr[t:b, l:r]).save(out)
+            self.selection.append(Media(out))
+        self.result = [self.selection]
+        info(f"wrote {len(rects)} cells from {path}")
 
     def _video_thumbnail(self, path: str, frame_no: int) -> None:
         """Save one decoded frame as <name>-frame<N>.png, and, when an

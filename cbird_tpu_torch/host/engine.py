@@ -4,8 +4,9 @@ Port of ``cbird_tpu/host/engine.py`` for every algorithm: it registers
 the port's ``DctHashIndex``, ``ColorDescIndex``, ``DctFeaturesIndex``,
 ``CvFeaturesIndex`` and ``DctVideoIndex``.  Videos decode on worker
 threads and hash on the engine's device (``host/video.py``), and commit
-one by one in completion order.  The template matcher is not ported yet:
-a query with it raises ``NotPortedError``.
+one by one in completion order.  The template matcher (`-p.tm`) runs on
+the engine's device with the scanner's decode: ``template_matcher`` makes
+one for each ``Database.similar`` and one that ``query`` keeps.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ from ..store.database import Database
 from ..store.media import Media, MediaGroup
 from ..store.vdx import is_valid_vdx
 from ..utils.log import info, warn
-from .scanner import NotPortedError, Scanner, media_type_for
+from .scanner import Scanner, media_type_for
+from .template_matcher import TemplateMatcher
 from .video import (DECODE_MAX_SIDE, backend_for, grab_frame, process_video,
                     process_videos)
 
@@ -48,12 +50,18 @@ class Engine:
         self.device = resolve(device)
         self.db = Database(root)
         self.scanner = Scanner(self.params, device=self.device)
+        self.db.make_matcher = self.template_matcher
+        self._tm: TemplateMatcher | None = None
         self._stop_requested = False
         self.db.add_index(DctHashIndex(self.device))
         self.db.add_index(ColorDescIndex(self.device))
         self.db.add_index(DctFeaturesIndex(self.device))
         self.db.add_index(CvFeaturesIndex(self.device))
         self.db.add_index(DctVideoIndex(self.device))
+
+    def template_matcher(self) -> TemplateMatcher:
+        """A template matcher on the engine's device and decode."""
+        return TemplateMatcher(self.scanner.decode_image, self.device)
 
     def stop_update(self) -> None:
         """Request a graceful stop of a running update: the batch loop
@@ -206,8 +214,6 @@ class Engine:
     def query(self, needle: Media, params: SearchParams) -> MediaGroup:
         """Single-needle search incl. on-the-fly processing of an
         unindexed needle and mirror variants (reference Engine::query)."""
-        if params.templateMatch:
-            raise NotPortedError("the template matcher is not ported yet")
         if needle.path and params.algo != SearchParams.ALGO_VIDEO \
                 and (needle.type == TYPE_VIDEO
                      or media_type_for(needle.path) == TYPE_VIDEO):
@@ -236,6 +242,12 @@ class Engine:
                 needle = processed
 
         matches = self.db.similar_to(needle, params)
+
+        if params.templateMatch and matches:
+            if self._tm is None:
+                self._tm = self.template_matcher()
+            self._tm.match(needle, matches, params)
+
         if params.mirrorMask and params.algo != SearchParams.ALGO_COLOR:
             matches += self._mirror_query(needle, params)
             seen = set()

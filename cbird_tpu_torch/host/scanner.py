@@ -51,10 +51,6 @@ FEATURE_MASK = ((1 << SearchParams.ALGO_DCT_FEATURES)
                 | (1 << SearchParams.ALGO_CV_FEATURES))
 
 
-class NotPortedError(RuntimeError):
-    """A feature of the JAX package that this package does not have yet."""
-
-
 @dataclasses.dataclass
 class DecodedImage:
     path: str

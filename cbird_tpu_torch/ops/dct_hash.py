@@ -190,6 +190,35 @@ def dct_hash_from_boxes(canvas: torch.Tensor, boxes: torch.Tensor) -> torch.Tens
     return torch.where(h == 0, torch.ones_like(h), h)
 
 
+def _area_map(size: torch.Tensor, n_out: int, n_canvas: int) -> torch.Tensor:
+    """[B, n_out, n_canvas] float64 box-overlap (INTER_AREA) weights of
+    each image's first ``size`` pixels: ``ref_numpy.area_resize``'s axis
+    matrix, entry for entry the same float64 operations."""
+    dev = size.device
+    s = (size.double() / n_out)[:, None, None]  # [B,1,1]
+    i = torch.arange(n_out, dtype=torch.float64, device=dev)[None, :, None]
+    j = torch.arange(n_canvas, dtype=torch.float64, device=dev)[None, None]
+    lo, hi = i * s, (i + 1) * s
+    over = (torch.minimum(hi, j + 1) - torch.maximum(lo, j)).clamp(min=0.0)
+    return torch.where(j < size.double()[:, None, None], over / s, 0.0)
+
+
+def average_hash_batch(canvas: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
+    """8x8 mean-threshold aHash, batched (reference averageHash64,
+    src/cvutil.cpp:564-576; a parity function, unused on the main path).
+    canvas [B,H,W] uint8, sizes [B,2] (h, w) -> [B] int64 hashes, the
+    bits of ``ref_numpy.average_hash64``: its area resize and mean in
+    float64."""
+    B, H, W = canvas.shape
+    mh = _area_map(sizes[:, 0], 8, H)  # [B,8,H]
+    mw = _area_map(sizes[:, 1], 8, W)  # [B,8,W]
+    g = torch.bmm(torch.bmm(mh, canvas.double()), mw.transpose(1, 2))
+    g = g.reshape(B, 64)
+    bits = g > g.mean(dim=1, keepdim=True)
+    return (bits.long() * torch.as_tensor(_BITS, device=canvas.device)).sum(
+        dim=1)
+
+
 def hash_batch(canvas: torch.Tensor, sizes: torch.Tensor, do_crop: bool = False,
                crop_range: int = 20):
     """Autocrop (optional) + DCT hash.

@@ -56,6 +56,9 @@ class Database:
         self._weed_md5s: set[str] | None = None
         self._neg: set[tuple[str, str]] | None = None
         self._media_cache: dict[int, Media] | None = None
+        # () -> TemplateMatcher for -p.tm (the Engine sets one on its
+        # device and decode; None: a matcher on the default device)
+        self.make_matcher = None
         self._create_tables()
 
     # ---- paths -----------------------------------------------------------
@@ -541,15 +544,14 @@ class Database:
         id_map = {m.id: m for m in haystack}
         needles = [m for m in haystack if m.type_flag() & params.queryTypes]
 
-        results: MediaGroupList = []
+        results: list = []  # (needle, group)
         with profile_stage(f"find_batch algo={params.algo} "
                            f"needles={len(needles)}"):
             all_matches = index.find_batch(needles, params)
         all_matches = self._escalate_all(index, needles, params, all_matches)
-        tm = self._make_tm(params)
         for needle, matches in zip(needles, all_matches):
             self._append_group(results, index, params, needle, matches,
-                               id_map, tm)
+                               id_map)
         return self._finish_groups(params, results)
 
     def _similar_streamed(self, index: Index, params: SearchParams,
@@ -563,9 +565,8 @@ class Database:
         175 of 177 s in this loop, VERDICT r03) or a dense list parallel
         to store_ids."""
         from ..utils.log import profile_stage
-        tm = self._make_tm(params)
         id_map: dict[int, Media] = {}
-        results: MediaGroupList = []
+        results: list = []  # (needle, group)
         items = sorted(raw.items()) if isinstance(raw, dict) \
             else enumerate(raw)
         n_hot = len(raw) if isinstance(raw, dict) else len(store_ids)
@@ -584,14 +585,16 @@ class Database:
                 if not needle.is_valid():
                     continue
                 self._append_group(results, index, params, needle, matches,
-                                   id_map, tm)
+                                   id_map)
         return self._finish_groups(params, results)
 
     def _make_tm(self, params: SearchParams):
         if not params.templateMatch:
             return None
-        from ..host.scanner import NotPortedError
-        raise NotPortedError("-p.tm: the template matcher is not ported yet")
+        if self.make_matcher is not None:
+            return self.make_matcher()
+        from ..host.template_matcher import TemplateMatcher
+        return TemplateMatcher()
 
     def _escalate_all(self, index: Index, needles: list[Media],
                       params: SearchParams, all_matches: list) -> list:
@@ -622,31 +625,39 @@ class Database:
             pend = [i for i in pend if len(all_matches[i]) <= params.minMatches]
         return all_matches
 
-    def _append_group(self, results: MediaGroupList, index: Index,
+    def _append_group(self, results: list, index: Index,
                       params: SearchParams, needle: Media, matches: list,
-                      id_map: dict, tm) -> None:
+                      id_map: dict) -> None:
+        """Appends (needle, its group) when the group is not empty."""
         group = self._matches_to_group(index, needle, params, matches, id_map)
-        if not group:
-            return
-        if tm is not None:
-            tm.match(needle, group, params)
-            if not group:
-                return
-        needle2 = needle
-        # propagate the first matched frame into the needle's range so
-        # the GUI/dump can show the aligned frame (reference
-        # src/database.cpp:1410-1416)
-        for m in group:
-            if m.matchRange.dstIn >= 0:
-                import copy
-                needle2 = copy.copy(needle)
-                needle2.matchRange = MatchRange(-1, m.matchRange.srcIn, 1)
-                break
-        results.append([needle2] + group)
+        if group:
+            results.append((needle, group))
 
     def _finish_groups(self, params: SearchParams,
-                       results: MediaGroupList) -> MediaGroupList:
+                       pending: list) -> MediaGroupList:
+        """(needle, group) pairs -> the result: -p.tm's verification of
+        every group (``TemplateMatcher.match_groups``, the same verdicts
+        as one ``match`` a group in this order), the filters, the sort."""
         from ..utils.log import profile_stage
+        tm = self._make_tm(params)
+        if tm is not None:
+            with profile_stage(f"template match ({len(pending)} groups)"):
+                tm.match_groups(pending, params)
+        results: MediaGroupList = []
+        for needle, group in pending:
+            if not group:
+                continue
+            needle2 = needle
+            # propagate the first matched frame into the needle's range so
+            # the GUI/dump can show the aligned frame (reference
+            # src/database.cpp:1410-1416)
+            for m in group:
+                if m.matchRange.dstIn >= 0:
+                    import copy
+                    needle2 = copy.copy(needle)
+                    needle2.matchRange = MatchRange(-1, m.matchRange.srcIn, 1)
+                    break
+            results.append([needle2] + group)
         with profile_stage(f"filter+sort ({len(results)} groups)"):
             out: MediaGroupList = []
             for group in results:

@@ -39,6 +39,14 @@ limit come first.
                         find_batch of its 64 planted sources (K6)
   color similar 2^16    the first 2^16 rows of that store: find_all (the
                         count-bucketed self-search)
+  tm match 64 groups    chip_smoke's tm collection cut to TM_PROFILE
+                        sources and as many distractors: a fresh
+                        TemplateMatcher's match_groups over the first 64
+                        of fdct -similar's groups (-p.tm's verification)
+  serve query dct / fdct / tm
+                        a QueryServer's engine over that index: a warm
+                        query of a source (tm: -p.alg fdct -p.tm 1, the
+                        matcher made anew a call, so no verdict is cached)
 
 Exits non-zero when no CUDA device is visible.
 """
@@ -199,6 +207,63 @@ def color_configs(torch, s, want, show):
     torch.cuda.empty_cache()
 
 
+TM_PROFILE = 64  # sources (and distractors) of the tm configurations
+
+
+def tm_configs(torch, s, want, show):
+    """The template matcher's and the query server's configurations, on a
+    cut of chip_smoke's tm collection (its index built by the CLI)."""
+    if not want("tm match 64 groups", "serve query dct", "serve query fdct",
+                "serve query tm"):
+        return
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    from cbird_tpu_torch.cli.main import main as cli
+    from cbird_tpu_torch.host.engine import Engine
+    from cbird_tpu_torch.host.template_matcher import TemplateMatcher
+    from cbird_tpu_torch.params import SearchParams
+    d = tempfile.mkdtemp(prefix="cbird-tm-")
+    try:
+        s.tm_collection(d, np.random.default_rng(chip_smoke.SEED + 40),
+                        TM_PROFILE, TM_PROFILE)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli(["-use", d, "-create", "-i.algos", "dct+fdct", "-i.fsize",
+                 "0", "-update",
+                 "-p.alg", "fdct", "-similar", "-json"])
+        raw = json.loads(buf.getvalue())[:64]
+        eng = Engine(d, device=s.dev)
+        db = eng.db
+        sp = SearchParams()
+
+        def groups():
+            return [(db.media_with_path(g["needle"]["path"]),
+                     [db.media_with_path(m["path"]) for m in g["matches"]])
+                    for g in raw]
+        if want("tm match 64 groups"):
+            show("tm match 64 groups", trace(torch, lambda: TemplateMatcher(
+                eng.scanner.decode_image, s.dev).match_groups(groups(), sp),
+                1))
+        needle = db.media_with_path(os.path.join(d, "t000_src.png"))
+        for kind in ("dct", "fdct", "tm"):
+            name = f"serve query {kind}"
+            if not want(name):
+                continue
+            p = SearchParams()
+            p.set_param("alg", "dct" if kind == "dct" else "fdct")
+            p.templateMatch = kind == "tm"
+
+            def query():
+                eng._tm = None
+                return eng.query(needle, p)
+            show(name, trace(torch, query, 3))
+        db.close()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     names = sys.argv[1:]
@@ -227,6 +292,7 @@ def main() -> int:
         print(json.dumps({"config": name, **nums}), flush=True)
 
     color_configs(torch, s, want, show)
+    tm_configs(torch, s, want, show)
     if not want(*HASH_CONFIGS):
         return 0
 

@@ -69,7 +69,7 @@ Phases, each printed on its own line (pass/fail, numbers, wall ms, card):
            over the images of the first 2^18 rows (K5, bounded at
            cvThresh) find them; 64 sampled needle images' K5 results and
            votes against the plain twin's
-  fcli     24 textured sources x (source, crop, 0.75 scale) as files:
+  fcli     12 textured sources x (source, crop, 0.75 scale) as files:
            cbird-torch -create -update, then -p.alg fdct and orb -similar
            -json and -similar-to; the groups equal the same CLI run with
            CBIRD_TORCH_DEVICE=cpu in a subprocess (its own -update)
@@ -90,6 +90,25 @@ Phases, each printed on its own line (pass/fail, numbers, wall ms, card):
            -p.alg color -similar (each source's four variants joined) and
            -similar-to of a mirrored copy, -merge, -test-image-search and
            -test-image-loader, each exit 0
+  tm       256 textured sources of 300-1200 px x (source, 70-90% crop,
+           0.5-0.8 rescale, shift onto a larger ground) and 256 unrelated
+           images as files: cbird-torch -create -i.algos dct+fdct
+           -update, -p.alg fdct -similar (the candidates), then -p.alg
+           fdct -p.tm 1 -similar (ORB of the matcher on the card, its
+           mutual match on K5): the sources joined and the cross-source
+           pairs kept, each case against the planted truth printed with
+           its cause and its scores both ways against a CPU matcher of
+           the port; the matcher's descriptors on CUDA; K5's mutual match
+           against numpy on 64 sampled pairs; 16 groups' pairs scored on
+           the card and the CPU (a differing score must come with
+           differing ORB features); pairs verified/s, the wall and ORB's
+           share
+  serve    QueryServer over tm's index on 127.0.0.1:0 in a background
+           thread (warm-up timed: every kernel built and loaded, the dct
+           store on the card): ping, status, 64 queries (dct and fdct, 8
+           with -p.tm), -similar-to through the CLI with CBIRD_SERVER,
+           stop; each answer equal to the same -similar-to in process;
+           first and warm p50 / p99 ms a kind of query
 
 The kernels phase also holds K5 (the 256-bit k-nearest search on the
 tensor cores) and K5-popc (its popcount form, the yardstick) against
@@ -116,13 +135,14 @@ the card's peak; the rate chip_bounds.py's probe of that color-pair step
 sustains is printed beside it (probed_k6_step_per_clk_sm).
 
 The main path is query, self, ph, video, vcli, cli, feat, fdct, orb,
-fcli, cdesc, color and ccli: the launch
+fcli, cdesc, color, ccli, tm and serve: the launch
 counters are zeroed just before each of them and read just after; every
 kernel must have run there, but for the bf16 form of K1-mma and the
 popcount K1 and K2 (the yardstick of the tensor-core forms), which only
 the kernels phase launches and the main path must launch 0 times.
 Launches made only to check a result (the ph and video phases' count
-checks) are left out of the counts.  The line before the last is a JSON
+checks, tm's sampled mutual matches and CPU comparison) are left out of
+the counts.  The line before the last is a JSON
 object with each kernel's numbers, the last is {"ok": true, "device":
 {...}}.  Any failure exits non-zero without it.  Exits non-zero at once
 when no CUDA device is visible.
@@ -221,7 +241,7 @@ FEAT_IMAGES, FEAT_CPU, KP = 1024, 8, 400
 FDCT_IMAGES, ORB_IMAGES = 10486, 2622
 FEAT_GROUPS, FEAT_NEEDLES = 64, 16
 ORB_SIMILAR_ROWS = 1 << 18
-FCLI_SOURCES = 24
+FCLI_SOURCES = 12
 # K5: checked needle and row counts (around the tensor-core form's m64
 # tiles, its units of 192 needles, its steps of 256 columns, and one
 # column past a chunk edge: 8193 rows in 33 chunks of one step); the
@@ -249,6 +269,14 @@ K6_Q = (1, 31, 32, 33, 64)
 K6_C = (1, 127, 128, 129, 4097)
 K6_TOPK_NEEDLES = 8
 CCLI_SOURCES = 12
+# the template matcher's collection: TM_SOURCES textured sources of
+# 300-1200 px, each with a 70-90% crop, a 0.5-0.8 rescale and a shift,
+# and TM_DISTRACTORS unrelated images; TM_SAMPLED_PAIRS pairs' K5 mutual
+# match against numpy, TM_CPU_GROUPS groups' scores against the CPU;
+# serve's query requests (SERVE_TM of them with -p.tm)
+TM_SOURCES, TM_DISTRACTORS = 256, 256
+TM_SAMPLED_PAIRS, TM_CPU_GROUPS, TM_CASES = 64, 16, 6
+SERVE_QUERIES, SERVE_TM = 64, 8
 # chip_bounds.py's probe library (the SM clock for the bounds)
 PROBE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                          "probes")
@@ -2632,12 +2660,9 @@ class Smoke:
         -similar-to of a mirrored copy, -merge, -test-image-search (four
         files) and -test-image-loader exit 0 and find the copies."""
         from PIL import Image
-        from cbird_tpu_torch.cli.main import NOT_PORTED, main
+        from cbird_tpu_torch.cli.main import main
         from cbird_tpu_torch.ops import color_scores as cs
         rng = np.random.default_rng(SEED + 33)
-        lifted = {"-merge", "-test-image-search", "-test-image-loader"}
-        if lifted & NOT_PORTED:
-            raise AssertionError(f"still gated: {lifted & NOT_PORTED}")
         out = {}
         k6 = cs.color_scores.launches
 
@@ -2693,6 +2718,386 @@ class Smoke:
             raise AssertionError("K6 did not run in the ccli phase")
         out["similar_to_mirror_matches"] = len(hit[0]["matches"])
         return out
+
+    # ---- the template matcher and the query server -----------------------
+    def tm_collection(self, d: str, rng, sources: int,
+                      distractors: int) -> dict:
+        """``sources`` seeded textured sources of 300-1200 px, each with a
+        70-90% crop, a 0.5-0.8 rescale and a shift (the source on a larger
+        flat ground), and ``distractors`` unrelated images, written as
+        files.  @return file name -> source (distractor n: -1 - n)"""
+        from PIL import Image
+        owner = {}
+
+        def save(name, arr, src):
+            Image.fromarray(arr).save(os.path.join(d, name))
+            owner[name] = src
+        for s, img in enumerate(self.feat_images(sources, rng)):
+            h, w = img.shape
+            save(f"t{s:03d}_src.png", img, s)
+            f = rng.uniform(0.7, 0.9)
+            ch, cw = int(h * f), int(w * f)
+            y = int(rng.integers(0, h - ch + 1))
+            x = int(rng.integers(0, w - cw + 1))
+            save(f"t{s:03d}_crop.png", img[y:y + ch, x:x + cw], s)
+            f = rng.uniform(0.5, 0.8)
+            save(f"t{s:03d}_scale.png", np.asarray(Image.fromarray(img).resize(
+                (max(1, round(w * f)), max(1, round(h * f))), Image.BOX)), s)
+            dy = int(rng.integers(h // 20, h // 6))
+            dx = int(rng.integers(w // 20, w // 6))
+            shifted = np.full((h + dy, w + dx), 60, np.uint8)
+            shifted[dy:, dx:] = img
+            save(f"t{s:03d}_shift.png", shifted, s)
+        for n, img in enumerate(self.feat_images(distractors, rng)):
+            save(f"x{n:03d}.png", img, -1 - n)
+        return owner
+
+    def tm_phase(self):
+        """-p.tm on the card: the TM collection through cbird-torch -create
+        -i.algos dct+fdct -update, -p.alg fdct -similar (the candidates),
+        then -p.alg fdct -p.tm 1 -similar.  Checks: the matcher's ORB on
+        the card and K5 launched; every case the matcher gets wrong
+        against the planted truth (a cross-source pair kept, a candidate
+        of a source whose variants stay apart; a variant fdct did not
+        offer is printed as such) printed with its cause and a CPU
+        matcher's scores both ways (the first TM_CASES); at most a tenth of
+        the sources apart and of fdct's cross-source pairs kept; K5's
+        mutual match equal to numpy on TM_SAMPLED_PAIRS pairs; the pairs of
+        TM_CPU_GROUPS groups scored on the card and on the CPU.  A score
+        that differs between the two must come with ORB features that
+        differ (float noise on a rounding edge moves a keypoint or flips
+        a bit, and RANSAC's pick with it): the same features with another
+        score fail the phase."""
+        torch = self.torch
+        from cbird_tpu_torch.cli import main as cli
+        from cbird_tpu_torch.host import template_matcher as tmm
+        from cbird_tpu_torch.host.scanner import Scanner
+        from cbird_tpu_torch.ops import hamming_lanes as hl
+        from cbird_tpu_torch.params import SearchParams
+        from cbird_tpu_torch.store.database import Database
+        if hasattr(cli, "NOT_PORTED"):
+            raise AssertionError("the CLI still refuses verbs")
+        rng = np.random.default_rng(SEED + 40)
+        d = self.tm_dir = tempfile.mkdtemp(prefix="cbird-tm-")
+        owner = self.tm_collection(d, rng, TM_SOURCES, TM_DISTRACTORS)
+        out = {"files": len(owner)}
+
+        def run(*args):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["-use", d, *args])
+            if rc:
+                raise AssertionError(f"{args} rc {rc}")
+            return buf.getvalue()
+        out["update_s"] = self.timed_s(
+            lambda: run("-create", "-i.algos", "dct+fdct", "-i.fsize", "0",
+                        "-update"))[0]
+        raw_s, raw = self.timed_s(
+            lambda: json.loads(run("-p.alg", "fdct", "-similar", "-json")))
+        # spies: the matcher's ORB passes (device, synced ms) and pairs
+        stats = {"orb_ms": 0.0, "orb_images": 0, "devices": set(),
+                 "pairs": 0}
+        orb_batch = tmm.TemplateMatcher._features_batch
+        verify = tmm.TemplateMatcher._verify_pair
+
+        def spy_orb(tm, grays, nf):
+            t0 = time.perf_counter()
+            res = orb_batch(tm, grays, nf)
+            torch.cuda.synchronize()
+            stats["orb_ms"] += (time.perf_counter() - t0) * 1e3
+            stats["orb_images"] += len(grays)
+            stats["devices"] |= {f[2].device.type for f in res}
+            return res
+
+        def spy_verify(*a):
+            stats["pairs"] += 1
+            return verify(*a)
+        k5 = hl.hamming_lanes_topk.launches
+        tmm.TemplateMatcher._features_batch = spy_orb
+        tmm.TemplateMatcher._verify_pair = staticmethod(spy_verify)
+        try:
+            tm_s, res = self.timed_s(lambda: json.loads(run(
+                "-p.alg", "fdct", "-p.tm", "1", "-similar", "-json")))
+        finally:
+            tmm.TemplateMatcher._features_batch = orb_batch
+            tmm.TemplateMatcher._verify_pair = staticmethod(verify)
+        out.update(raw_similar_s=raw_s, tm_similar_s=tm_s,
+                   raw_groups=len(raw), tm_groups=len(res),
+                   pairs_verified=stats["pairs"],
+                   pairs_verified_per_s=round(stats["pairs"] / tm_s, 1),
+                   orb_images=stats["orb_images"],
+                   orb_ms=round(stats["orb_ms"], 1),
+                   orb_share=round(stats["orb_ms"] / 1e3 / tm_s, 4),
+                   k5_launches=hl.hamming_lanes_topk.launches - k5)
+        if stats["devices"] != {self.dev.type}:
+            raise AssertionError(f"the matcher's ORB ran on "
+                                 f"{stats['devices']}")
+        if hl.hamming_lanes_topk.launches == k5:
+            raise AssertionError("K5 did not run in -p.tm")
+        name = lambda m: os.path.basename(m["path"])
+        raw_of = {name(g["needle"]): [name(m) for m in g["matches"]]
+                  for g in raw}
+        groups = {(name(g["needle"]), frozenset(map(name, g["matches"])))
+                  for g in res}
+        sources = {k: v for k, v in owner.items() if v >= 0}
+        parent = {n: n for n in sources}
+
+        def find(n):
+            while parent[n] != n:
+                n = parent[n]
+            return n
+        for n, ms in groups:
+            for m in ms:
+                if owner[n] == owner[m] >= 0:
+                    parent[find(m)] = find(n)
+        apart = sorted({owner[n] for n in sources}
+                       - {s for s in set(sources.values()) if len(
+                           {find(n) for n in sources if sources[n] == s}) == 1})
+        cross = sorted((n, m) for n, ms in groups for m in ms
+                       if owner[m] != owner[n])
+        raw_cross = sum(owner[m] != owner[n] for n, ms in raw_of.items()
+                        for m in ms)
+        out.update(sources_joined=TM_SOURCES - len(apart),
+                   raw_cross_pairs=raw_cross, tm_cross_pairs=len(cross))
+        params = SearchParams()
+        db = Database(d)
+        fresh = lambda n: db.media_with_path(os.path.join(d, n))
+        devs = (self.dev.type, "cpu")
+        matchers = {t: tmm.TemplateMatcher(device=torch.device(t))
+                    for t in devs}
+
+        def scores(dev, n, ms):
+            """A fresh match of template n against the group ms (no cached
+            verdict): each candidate's score."""
+            tm = matchers[dev]
+            tm._cache.clear()
+            group = [fresh(m) for m in ms]
+            cands = list(group)
+            tm.match(fresh(n), group, params)
+            return [m.score for m in cands]
+
+        def orb_of(dev, n, ms):
+            """The ORB that scores(dev, n, ms) runs: the template n (a batch
+            of one), then the candidates after -p.tscale (one batch)."""
+            tm = matchers[dev]
+            tg = tm._decode_gray(os.path.join(d, n))
+            cgs = [tm._tscale(tg, tm._decode_gray(os.path.join(d, m)),
+                              params) for m in ms]
+            return [(x, y, f.cpu().numpy()) for x, y, f in (
+                tm._features_batch([tg], params.needleFeatures)
+                + tm._features_batch(cgs, params.haystackFeatures))]
+
+        def compare(n, ms):
+            """The card's and the CPU's scores of group ms under template n.
+            Where a score differs, the ORB of n or of that candidate must
+            differ too (float noise at a rounding edge, ROADMAP queue 3):
+            equal features with unequal scores are a fault of the match or
+            the verify.  @return per candidate (card, cpu, note, fault)"""
+            card, cpu = (scores(t, n, ms) for t in devs)
+            if card == cpu:
+                return [(a, a, "", False) for a in card]
+            a, b = (orb_of(t, n, ms) for t in devs)
+            same = [all(np.array_equal(u, v) for u, v in zip(p, q))
+                    for p, q in zip(a, b)]
+            out = []
+            for i, m in enumerate(ms):
+                if card[i] == cpu[i]:
+                    out.append((card[i], cpu[i], "", False))
+                elif same[0] and same[i + 1]:
+                    out.append((card[i], cpu[i], "the same ORB on both",
+                                True))
+                else:
+                    kp = [f"{who}: {len(a[j][0])} / {len(b[j][0])} keypoints"
+                          for who, j in ((n, 0), (m, i + 1)) if not same[j]]
+                    out.append((card[i], cpu[i],
+                                f"ORB differs ({'; '.join(kp)})", False))
+            return out
+        faults, noisy = 0, 0
+        # the cases the matcher got wrong against the planted truth, each
+        # printed with its cause and both devices' scores both ways
+        cases = [(n, m, "a cross-source pair kept") for n, m in cross]
+        for src in apart:
+            names = sorted(k for k, v in sources.items() if v == src)
+            for n in names:
+                for m in names:
+                    if m != n and m not in raw_of.get(n, []):
+                        print(f"tm: {m} is not among fdct's candidates of "
+                              f"{n}", flush=True)
+                    elif m != n:
+                        cases.append((n, m, "a same-source candidate"))
+        with self.uncounted():
+            for n, m, what in cases[:TM_CASES]:
+                for t, c in ((n, m), (m, n)):
+                    [(card, cpu, note, fault)] = compare(t, [c])
+                    why = ("no transform from >= 3 mutual matches"
+                           if card == tmm.INT_MAX else
+                           f"masked-hash distance {card} "
+                           f"{'<' if card < params.tmThresh else '>='} "
+                           f"tmThresh {params.tmThresh}")
+                    print(f"tm: {what}: {t} -> {c}: {why}; on the CPU "
+                          f"{cpu} {note}", flush=True)
+                    faults += fault
+                    noisy += card != cpu
+        out.update(cases=len(cases), cases_checked=min(len(cases), TM_CASES))
+        if len(apart) > TM_SOURCES // 10 or len(cross) > raw_cross // 10:
+            raise AssertionError(f"{len(apart)} sources not joined, "
+                                 f"{len(cross)} of {raw_cross} cross-source "
+                                 f"pairs kept")
+        # checks: K5's mutual match against numpy; 16 groups on the CPU
+        card = matchers[self.dev.type]
+        pairs = [(n, m) for n, ms in sorted(raw_of.items()) for m in ms]
+        pick = rng.choice(len(pairs), min(TM_SAMPLED_PAIRS, len(pairs)),
+                          replace=False)
+        dec = Scanner(device=self.dev).decode_image
+        with self.uncounted():
+            diff = 0
+            for i in pick:
+                n, m = pairs[i]
+                grays = [dec(os.path.join(d, x)).gray for x in (n, m)]
+                (_, _, a), (_, _, b) = card._features_batch(
+                    grays, params.haystackFeatures)
+                got = tmm.mutual_matches(a, [b], params.cvThresh)[0]
+                want = tmm._mutual_radius_match(
+                    a.cpu().numpy().view(np.uint8).reshape(-1, 32),
+                    b.cpu().numpy().view(np.uint8).reshape(-1, 32),
+                    params.cvThresh)
+                diff += got != want
+            if diff:
+                raise AssertionError(f"K5's mutual match differs from "
+                                     f"numpy on {diff} pairs")
+            out["sampled_pairs_equal"] = len(pick)
+            needles = [n for n in sorted(raw_of) if raw_of[n]]
+            chosen = [needles[i] for i in sorted(rng.choice(
+                len(needles), TM_CPU_GROUPS, replace=False))]
+            equal = 0
+            for n in chosen:
+                for m, (card_s, cpu_s, note, fault) in zip(
+                        raw_of[n], compare(n, raw_of[n])):
+                    equal += card_s == cpu_s
+                    faults += fault
+                    noisy += card_s != cpu_s
+                    if note:
+                        print(f"tm: group of {n}: {m}: card {card_s}, CPU "
+                              f"{cpu_s}: {note}", flush=True)
+        db.close()
+        out.update(cpu_pairs=sum(len(raw_of[n]) for n in chosen),
+                   cpu_pairs_equal=equal, scores_differing_by_orb=noisy,
+                   card=smi())
+        if faults:
+            raise AssertionError(f"{faults} scores differ from the CPU's "
+                                 f"on the same ORB features")
+        return out
+
+    def timed_s(self, fn):
+        """(wall seconds, result) of one call, the card synced after."""
+        t0 = time.perf_counter()
+        res = fn()
+        self.torch.cuda.synchronize()
+        return round(time.perf_counter() - t0, 3), res
+
+    def serve_phase(self):
+        """-serve over the tm phase's index: QueryServer on 127.0.0.1:0 in
+        a background thread (warm-up timed), ping and status, SERVE_QUERIES
+        queries (dct and fdct, SERVE_TM with -p.tm), -similar-to through
+        the CLI with CBIRD_SERVER, then stop; every answer equal to the
+        same -similar-to in process; warm-query p50 / p99."""
+        from cbird_tpu_torch.cli import main as cli
+        from cbird_tpu_torch.cli.serve import QueryClient, QueryServer
+        from cbird_tpu_torch.host.engine import Engine
+        d = self.tm_dir
+        try:
+            rng = np.random.default_rng(SEED + 41)
+            files = sorted(f for f in os.listdir(d) if f.endswith(".png"))
+            eng = Engine(d, device=self.dev)
+            srv = QueryServer(eng)
+            warm_s = srv.warmup()
+            thread = srv.start_background()
+            addr = f"{srv.address[0]}:{srv.address[1]}"
+            c = QueryClient(addr)
+            out = {"warmup_s": round(warm_s, 3)}
+            if not c.call({"cmd": "ping"}).get("pong"):
+                raise AssertionError("no pong")
+            status = c.call({"cmd": "status"})
+            if status.get("items") != len(files):
+                raise AssertionError(f"status: {status}")
+            reqs = []
+            for q in range(SERVE_QUERIES):
+                alg = "dct" if q % 2 == 0 else "fdct"
+                tm = q % (SERVE_QUERIES // SERVE_TM) == 1
+                reqs.append((os.path.join(d, files[int(rng.integers(
+                    len(files)))]), alg, tm))
+            answers, ms = [], {"dct": [], "fdct": [], "tm": []}
+            for path, alg, tm in reqs:
+                params = {"alg": alg, **({"tm": 1} if tm else {})}
+                t0 = time.perf_counter()
+                answers.append(c.query(path, **params))
+                ms["tm" if tm else alg].append(
+                    (time.perf_counter() - t0) * 1e3)
+            # the same -similar-to verbs in process, one CLI run
+            args = ["-use", d]
+            for path, alg, tm in reqs:
+                args += ["-p.alg", alg, "-p.tm", "1" if tm else "0",
+                         "-similar-to", path, "-json"]
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(args)
+            if rc:
+                raise AssertionError(f"in-process -similar-to rc {rc}")
+            local, text, at = [], buf.getvalue(), 0
+            dec = json.JSONDecoder()
+            while text[at:].strip():
+                at += len(text[at:]) - len(text[at:].lstrip())
+                obj, at = dec.raw_decode(text, at)
+                local.append(obj)
+            same = lambda g, l: [[(m["path"], m["score"]) for m in x[1:]]
+                                 for x in g] == [[(m["path"], m["score"])
+                                                  for m in x["matches"]]
+                                                 for x in l] and \
+                [x[0]["path"] for x in g] == [x["needle"]["path"]
+                                              for x in l]
+            bad = [r for r, g, l in zip(reqs, answers, local)
+                   if not same(g, l)]
+            if len(local) != len(reqs) or bad:
+                raise AssertionError(f"{len(bad)} answers differ from the "
+                                     f"in-process -similar-to: {bad[:3]}")
+            hits = sum(bool(g) for g in answers)
+            k = next(i for i, r in enumerate(reqs)
+                     if r[1] == "fdct" and not r[2])
+            os.environ["CBIRD_SERVER"] = addr
+            try:
+                before = srv._queries
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rc = cli.main(["-use", d, "-p.alg", "fdct",
+                                   "-similar-to", reqs[k][0], "-json"])
+            finally:
+                del os.environ["CBIRD_SERVER"]
+            routed = json.loads(buf.getvalue())
+            routed = [[x["needle"]] + x["matches"] for x in routed]
+            if rc or srv._queries != before + 1 or not same(routed,
+                                                             local[k]):
+                raise AssertionError("-similar-to through CBIRD_SERVER "
+                                     "differs")
+            if not c.call({"cmd": "stop"}).get("stopping"):
+                raise AssertionError("stop refused")
+            c.close()
+            thread.join(timeout=60)
+            if thread.is_alive():
+                raise AssertionError("the server did not stop")
+            srv.server.server_close()
+            eng.db.close()
+            for kind, xs in ms.items():
+                warm = np.array(xs[1:])  # the first loads the kind's index
+                out[f"{kind}_first_ms"] = round(xs[0], 3)
+                out[f"{kind}_p50_ms"] = round(float(np.percentile(warm, 50)),
+                                             3)
+                out[f"{kind}_p99_ms"] = round(float(np.percentile(warm, 99)),
+                                             3)
+            out.update(queries=len(reqs), with_matches=hits, card=smi())
+            return out
+        finally:
+            import shutil
+            shutil.rmtree(d, ignore_errors=True)
 
 
 def color_image(rng, h: int, w: int) -> np.ndarray:
@@ -2822,7 +3227,8 @@ def main() -> int:
                      ("feat", s.feat_phase), ("fdct", s.fdct_phase),
                      ("orb", s.orb_phase), ("fcli", s.fcli_phase),
                      ("cdesc", s.cdesc_phase), ("color", s.color_phase),
-                     ("ccli", s.color_cli_phase)):
+                     ("ccli", s.color_cli_phase), ("tm", s.tm_phase),
+                     ("serve", s.serve_phase)):
         s.set_launches(dict.fromkeys(s.counters, 0))
         second = hamming_topk.overflowed
         s.phase(name, fn)

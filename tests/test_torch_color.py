@@ -605,13 +605,14 @@ def test_cli_color_verbs(color_corpus, monkeypatch):
     """-update with color writes the JAX package's blob (which its index
     loads); -p.alg color -similar and -similar-to, -merge,
     -test-image-search (its fdct and orb needles at two pyramid levels)
-    and -test-image-loader exit 0, and none of these verbs is in
-    NOT_PORTED any more."""
+    and -test-image-loader exit 0, and the port's CLI refuses no verb
+    (its NOT_PORTED gate is gone)."""
     from cbird_tpu_torch.ops import orb
     monkeypatch.setattr(orb, "N_LEVELS", 2)
     d = color_corpus
+    assert not hasattr(port_cli, "NOT_PORTED")
     for verb in ("-merge", "-test-image-search", "-test-image-loader"):
-        assert verb not in port_cli.NOT_PORTED
+        assert verb in port_cli._KNOWN_VERBS
     rc, _ = _cli("-use", d, "-i.algos", "dct+color", "-create", "-update")
     assert rc == 0
     db = sqlite3.connect(os.path.join(d, "_index", "media3.db"))

@@ -144,16 +144,102 @@ def test_jpeg_digests_equal_reference():
         assert port_ioutil.jpeg_payload(data) == jax_ioutil.jpeg_payload(data)
 
 
-def test_not_ported_verbs_fail_cleanly(jax_index, capsys):
-    """The template matcher and the verbs that need a module the port
-    does not have yet exit 2 (fdct and orb are ported:
-    tests/test_torch_orb.py; color, -merge and -test-image-search:
-    tests/test_torch_color.py)."""
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _stop_browser(port):
+    """Press the browser's Quit button once its page answers."""
+    import re
+    import time
+    import urllib.request
+    url = f"http://127.0.0.1:{port}/"
+    for _ in range(300):
+        try:
+            with urllib.request.urlopen(url, timeout=10) as r:
+                token = re.search(rb'TOKEN="([0-9a-f]+)"', r.read()).group(1)
+            break
+        except OSError:
+            time.sleep(0.1)
+    req = urllib.request.Request(url + "api/quit", data=b"{}", method="POST",
+                                 headers={"X-Cbird-Token": token.decode()})
+    urllib.request.urlopen(req, timeout=10).read()
+
+
+def _stop_server(port, mod):
+    """Ping the query server, then stop it."""
+    import time
+    for _ in range(300):
+        try:
+            c = mod.QueryClient(f"127.0.0.1:{port}")
+            break
+        except OSError:
+            time.sleep(0.1)
+    assert c.call({"cmd": "ping"})["pong"]
+    assert c.call({"cmd": "stop"})["stopping"]
+    c.close()
+
+
+@pytest.mark.parametrize("verb", ["-p.tm", "-browse", "-serve", "-verify",
+                                  "-qualityscore", "-select-grid"])
+def test_lifted_verbs_exit_as_jax(verb, jax_index, monkeypatch):
+    """The verbs the port used to refuse run and exit as the JAX CLI's:
+    -p.tm 1 -similar (both ORBs at two pyramid levels), -browse (stopped
+    by its Quit button), -serve (stopped by a client), -verify,
+    -qualityscore and -select-grid (tests/test_torch_verbs.py and
+    tests/test_torch_template_matcher.py hold their output)."""
+    import threading
+    import jax.numpy
+    from cbird_tpu.cli import serve as jax_serve
+    from cbird_tpu.ops import orb as jo
+    from cbird_tpu_torch.cli import serve as port_serve
+    from cbird_tpu_torch.ops import orb as po
     d, _ = jax_index
-    for args in (["-p.tm", "1", "-similar"], ["-browse"], ["-serve"],
-                 ["-qualityscore"]):
-        assert port_cli.main(["-use", d, *args]) == 2, args
-        assert "not ported yet" in capsys.readouterr().err
+    monkeypatch.setattr(jo, "N_LEVELS", 2)
+    monkeypatch.setattr(po, "N_LEVELS", 2)
+    orb_kernel = jo._orb_kernel
+
+    def padded(canvas, sizes, nfeatures):
+        """The JAX ORB at one batch shape: the template and its two
+        candidates (the pyramid runs each image of a batch on its own)."""
+        b = canvas.shape[0]
+        c = jax.numpy.zeros((2,) + canvas.shape[1:], canvas.dtype)
+        z = jax.numpy.ones((2, 2), sizes.dtype)
+        res = orb_kernel(c.at[:b].set(canvas), z.at[:b].set(sizes), nfeatures)
+        return {k: v[:b] for k, v in res.items()}
+    monkeypatch.setattr(jo, "_orb_kernel", padded)
+    args = {"-p.tm": ["-p.tm", "1", "-p.tnf", "400", "-p.thf", "400",
+                      "-similar", "-json"],
+            "-browse": ["-similar", "-browse"],
+            "-serve": ["-serve"],
+            "-verify": ["-verify"],
+            "-qualityscore": ["-similar", "-qualityscore"],
+            "-select-grid": ["-select-grid",
+                             os.path.join(d, "img000_s100.png"), "-count"],
+            }[verb]
+    outs = []
+    for main, serve in ((port_cli.main, port_serve), (jax_cli.main,
+                                                       jax_serve)):
+        port = _free_port()
+        monkeypatch.setenv("CBIRD_BROWSER_PORT", str(port))
+        monkeypatch.setenv("CBIRD_SERVE_ADDR", f"127.0.0.1:{port}")
+        stop = {"-browse": lambda: _stop_browser(port),
+                "-serve": lambda: _stop_server(port, serve)}.get(verb)
+        stopper = threading.Thread(target=stop) if stop else None
+        if stopper:
+            stopper.start()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main(["-use", d, *args])
+        if stopper:
+            stopper.join(timeout=60)
+            assert not stopper.is_alive()
+        outs.append((rc, buf.getvalue()))
+    assert outs[0] == outs[1]
+    assert outs[0][0] == 0
 
 
 def test_show_report_equal(jax_index, tmp_path, monkeypatch):
@@ -171,11 +257,13 @@ def test_show_report_equal(jax_index, tmp_path, monkeypatch):
 
 
 def test_slice_imports_no_jax(corpus):
-    """Every module of the port imported, then the CLI slice run (dct, and
-    -update -similar with fdct, with orb and with color): neither jax nor
-    any module of the JAX package (cbird_tpu) is loaded."""
+    """Every module of the port imported, then the CLI slice run (dct,
+    -update -similar with fdct, with orb and with color, -p.tm 1 -similar,
+    and a -serve that a client queries and stops): neither jax nor any
+    module of the JAX package (cbird_tpu) is loaded."""
     d = _copy(corpus, "nojax")
     needle = os.path.join(d, "img000_s100.png")
+    port = _free_port()
     code = (
         "import importlib, pkgutil, sys\n"
         "import cbird_tpu_torch\n"
@@ -192,6 +280,27 @@ def test_slice_imports_no_jax(corpus):
         "    with contextlib.redirect_stdout(io.StringIO()):\n"
         f"        assert main(['-use', {d!r}, '-i.algos', 'dct+' + alg,"
         " '-update', '-p.alg', alg, '-similar']) == 0\n"
+        "from cbird_tpu_torch.ops import orb\n"
+        "orb.N_LEVELS = 2  # the matcher's ORB at two levels: cheap\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        f"    assert main(['-use', {d!r}, '-p.tm', '1', '-similar']) == 0\n"
+        "import os, threading, time\n"
+        "from cbird_tpu_torch.cli.serve import QueryClient\n"
+        f"os.environ['CBIRD_SERVE_ADDR'] = '127.0.0.1:{port}'\n"
+        f"t = threading.Thread(target=main, args=(['-use', {d!r},"
+        " '-serve'],))\n"
+        "t.start()\n"
+        "for _ in range(600):\n"
+        "    try:\n"
+        f"        c = QueryClient('127.0.0.1:{port}')\n"
+        "        break\n"
+        "    except OSError:\n"
+        "        time.sleep(0.1)\n"
+        f"assert len(c.query({needle!r})[0]) == 3\n"
+        "assert c.call({'cmd': 'stop'})['stopping']\n"
+        "c.close()\n"
+        "t.join(60)\n"
+        "assert not t.is_alive()\n"
         "bad = [k for k in sys.modules if k == 'jax' or k == 'cbird_tpu'\n"
         "       or k.startswith(('jax.', 'cbird_tpu.'))]\n"
         "assert not bad, bad\n"
@@ -221,8 +330,8 @@ def test_complete_takes_only_a_shell(tmp_path, monkeypatch, capsys):
 
 def test_known_verbs_equal_dispatch():
     """The completion list holds every verb _dispatch takes (each literal
-    it compares the verb with, the GUI option sets it names and the
-    not-ported verbs), single-dash spellings only, each once."""
+    it compares the verb with and the GUI option sets it names),
+    single-dash spellings only, each once."""
     import ast
     import inspect
     tree = ast.parse(inspect.getsource(port_cli))
@@ -230,7 +339,7 @@ def test_known_verbs_equal_dispatch():
               and n.name == "_dispatch")
     named = {t.id: n.value for n in ast.walk(fn) if isinstance(n, ast.Assign)
              for t in n.targets if isinstance(t, ast.Name)}
-    verbs = set(port_cli.NOT_PORTED)
+    verbs = set()
     for node in ast.walk(fn):
         if isinstance(node, ast.Compare) and isinstance(node.left, ast.Name) \
                 and node.left.id == "a":
