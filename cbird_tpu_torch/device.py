@@ -8,6 +8,7 @@ quietly on the CPU, unless the user selects the CPU explicitly with
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -24,6 +25,28 @@ def resolve(device: str | torch.device | None = None) -> torch.device:
         raise RuntimeError(
             f"CUDA is not available; set {ENV}=cpu to run on the CPU")
     return dev
+
+
+def one_device(what: str, *tensors) -> torch.device:
+    """The one device of a kernel's operands (``None`` entries skipped).
+    @raise ValueError when they lie on more than one device"""
+    devs = {(t.device.type, getattr(t.device, "index", None)): t.device
+            for t in tensors if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"{what}: operands on different devices "
+                         f"{sorted(str(d) for d in devs.values())}")
+    return devs.popitem()[1]
+
+
+def launch_on(device: torch.device):
+    """Context of a kernel launch: ``device`` is the calling thread's
+    current CUDA device inside it, so a C launcher that reads the current
+    device (its SM count, its shared-memory attribute) reads the one its
+    stream and operands belong to.  Anything but a CUDA ``torch.device``
+    (a stand-in of the tests) takes no guard."""
+    if not isinstance(device, torch.device) or device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def set_hash_numerics() -> None:

@@ -4,7 +4,10 @@ Port of ``cbird_tpu/index/cv_features_index.py``: 256-bit binary
 descriptors (up to 400 an image) searched k-nearest with median-score
 voting.  Every descriptor lives in one [T, 4] int64 array on the device
 (``_PackedDescStore``), scanned by the exact k-nearest kernel K5
-(``ops/hamming_lanes.py``), bounded at the vote threshold.
+(``ops/hamming_lanes.py``), bounded at the vote threshold.  On a mesh
+(``ops/hamming.py`` ``_search_mesh``) the rows are split over its index
+axis and ``knn`` runs ``parallel/sharded.py`` ``sharded_lanes_topk`` with
+the same bound.
 
 Voting is the reference's find(): per needle descriptor the 10 nearest;
 hits at distance >= cvThresh dropped; per candidate image the distances;
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
-from ..ops.hamming import IdRows
+from ..ops.hamming import IdRows, _search_mesh
 from ..ops.hamming_lanes import BAD_DIST, BINS, hamming_lanes_topk
 from ..params import FLAG_IMAGE, SearchParams, TYPE_IMAGE
 from ..store.media import Media
@@ -44,6 +47,7 @@ class _PackedDescStore:
         self._desc = np.zeros((0, 8), dtype=np.uint32)
         self._ids = np.zeros(0, dtype=np.uint32)
         self._dev = None
+        self._dev_mesh = None  # the mesh _dev is sharded over
         self._id_rows: IdRows | None = None
 
     def __len__(self):
@@ -91,13 +95,24 @@ class _PackedDescStore:
         out.add(self._desc[keep], self._ids[keep])
         return out
 
-    def device_arrays(self) -> tuple[torch.Tensor, torch.Tensor]:
+    def device_arrays(self):
         """(descriptors [T, 4] int64, valid [T] bool) on the device (the
-        kernel takes any row count: no padding)."""
-        if self._dev is None:
+        kernel takes any row count: no padding), or ``Sharded`` over the
+        mesh (padded with invalid rows to a multiple of its shards)."""
+        mesh = _search_mesh(self.device)
+        if self._dev is None or self._dev_mesh is not mesh:
             desc = np.ascontiguousarray(self._desc).view(np.int64)
-            self._dev = (torch.from_numpy(desc).to(self.device),
-                         torch.from_numpy(self._ids != 0).to(self.device))
+            valid = self._ids != 0
+            if mesh is None:
+                self._dev = (torch.from_numpy(desc).to(self.device),
+                             torch.from_numpy(valid).to(self.device))
+            else:
+                from ..parallel.sharded import index_shards, shard_rows
+                pad = -len(valid) % index_shards(mesh)
+                self._dev = shard_rows(
+                    mesh, np.pad(desc, ((0, pad), (0, 0))),
+                    np.pad(valid, (0, pad)))
+            self._dev_mesh = mesh
         return self._dev
 
     def knn(self, needles: np.ndarray, k: int = KNN, bound: int = BINS,
@@ -116,9 +131,15 @@ class _PackedDescStore:
         nd = torch.from_numpy(np.ascontiguousarray(
             needles, dtype=np.uint32).view(np.int64)).to(self.device)
         ids = np.r_[self._ids, np.uint32(0)]  # row -1: no id
+        mesh = self._dev_mesh
         for s in range(0, q_total, needle_batch):
-            d, i = hamming_lanes_topk(nd[s:s + needle_batch], desc_d,
-                                      valid_d, kk, bound)
+            if mesh is not None:
+                from ..parallel.sharded import sharded_lanes_topk
+                d, i = sharded_lanes_topk(mesh, nd[s:s + needle_batch],
+                                          desc_d, valid_d, kk, bound)
+            else:
+                d, i = hamming_lanes_topk(nd[s:s + needle_batch], desc_d,
+                                          valid_d, kk, bound)
             d, i = d.cpu().numpy(), i.cpu().numpy()
             out_d[s:s + len(d), :kk] = d
             out_i[s:s + len(d), :kk] = ids[i]

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..device import launch_on, one_device
 from .count_below import popcount64
 
 MAX_MASKS = 8
@@ -155,17 +156,19 @@ def band_counts(sh: torch.Tensor, srow: torch.Tensor, svalid: torch.Tensor,
     """Band credits of one block's sorted order: every counted pair within
     one tile of ``s`` sorted positions or between adjacent tiles.
     @return csort [n_pad + s] int32"""
-    if sh.device.type == "cpu":
+    dev = one_device("band_counts", sh, srow, svalid)
+    if dev.type == "cpu":
         return band_counts_plain(sh, srow, svalid, masks, t, s)
     lib = _load(_BAND_FN, _COMMON + [ctypes.c_void_p, ctypes.c_void_p])
     check_operands(sh, srow, svalid, masks, s)
     _require_cuda(sh, "band_counts")
-    out = torch.empty(sh.numel(), dtype=torch.int32, device=sh.device)
+    out = torch.empty(sh.numel(), dtype=torch.int32, device=dev)
     marr = _mask_array(masks)
-    err = getattr(lib, _BAND_FN)(
-        sh.data_ptr(), srow.data_ptr(), svalid.data_ptr(), sh.numel(), int(s),
-        ctypes.addressof(marr), len(masks), int(t), out.data_ptr(),
-        torch.cuda.current_stream(sh.device).cuda_stream)
+    with launch_on(dev):
+        err = getattr(lib, _BAND_FN)(
+            sh.data_ptr(), srow.data_ptr(), svalid.data_ptr(), sh.numel(),
+            int(s), ctypes.addressof(marr), len(masks), int(t),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "band_counts")
     band_counts.launches += 1
     return out
@@ -182,7 +185,8 @@ def run_tiles(csort: torch.Tensor, sh: torch.Tensor, srow: torch.Tensor,
     @param tiles [P, 2] host array of tile pairs, tb >= ta + 2
     @return csort"""
     tiles = np.asarray(tiles, dtype=np.int32).reshape(-1, 2)
-    if sh.device.type == "cpu":
+    dev = one_device("run_tiles", csort, sh, srow, svalid)
+    if dev.type == "cpu":
         return run_tiles_plain(csort, sh, srow, svalid, tiles, masks, t, s)
     lib = _load(_RUN_FN, _COMMON + [ctypes.c_void_p, ctypes.c_int,
                                     ctypes.c_void_p, ctypes.c_void_p])
@@ -194,13 +198,14 @@ def run_tiles(csort: torch.Tensor, sh: torch.Tensor, srow: torch.Tensor,
         raise ValueError("csort must be a contiguous int32 vector like sh")
     if not len(tiles):
         return csort
-    tiles_dev = torch.from_numpy(tiles).to(sh.device)
+    tiles_dev = torch.from_numpy(tiles).to(dev)
     marr = _mask_array(masks)
-    err = getattr(lib, _RUN_FN)(
-        sh.data_ptr(), srow.data_ptr(), svalid.data_ptr(), sh.numel(), int(s),
-        ctypes.addressof(marr), len(masks), int(t), tiles_dev.data_ptr(),
-        len(tiles), csort.data_ptr(),
-        torch.cuda.current_stream(sh.device).cuda_stream)
+    with launch_on(dev):
+        err = getattr(lib, _RUN_FN)(
+            sh.data_ptr(), srow.data_ptr(), svalid.data_ptr(), sh.numel(),
+            int(s), ctypes.addressof(marr), len(masks), int(t),
+            tiles_dev.data_ptr(), len(tiles), csort.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "run_tiles")
     run_tiles.launches += 1
     return csort

@@ -12,7 +12,11 @@ Port of ``cbird_tpu/ops/color.py`` (the reference's ColorDescriptor):
 - ``color_topk``, ``color_self_block`` and ``PackedColorStore``: the
   chamfer min-distance-sum search, scored by kernel K6
   (``ops/color_scores.py``), each chunk's k best taken by a stable sort
-  (ties go to the lower row) and merged.
+  (ties go to the lower row) and merged.  On a mesh (``ops/hamming.py``
+  ``_search_mesh``) the store's rows are split over its index axis and
+  ``search`` runs ``parallel/sharded.py`` ``sharded_color_topk``;
+  ``search_self`` takes the unbucketed scan there, as the JAX package
+  does.
 
 Numerics.  The batch keeps ``vmap(while_loop)``'s semantics: each image
 stops at its own iteration count, and an image's descriptor does not
@@ -52,7 +56,7 @@ from ..device import resolve
 from . import prng
 from .color_scores import BAD_SCORE, NUM_COLORS, color_scores
 from .exact32 import fma32, sqrt32
-from .hamming import _bucket
+from .hamming import _bucket, _search_mesh
 
 _U16 = 65535.0
 
@@ -449,6 +453,7 @@ class PackedColorStore:
         self._descs = np.zeros((0, NUM_COLORS + 1, 4), dtype=np.uint16)
         self._ids = np.zeros(0, dtype=np.uint32)
         self._dev = None
+        self._dev_mesh = None  # the mesh _dev is sharded over
 
     def __len__(self):
         return len(self._ids)
@@ -489,10 +494,14 @@ class PackedColorStore:
 
     def device_arrays(self):
         """(colors [b, 32, 3] f32, counts [b] i32, valid [b] bool) on the
-        device, padded to a bucket (rows past the store: count 0)."""
-        if self._dev is None:
+        device, padded to a bucket (rows past the store: count 0), or
+        ``Sharded`` over the mesh (the bucket a multiple of its shards)."""
+        mesh = _search_mesh(self.device)
+        if self._dev is None or self._dev_mesh is not mesh:
+            from ..parallel.sharded import index_shards, shard_rows
             n = len(self._ids)
-            b = _bucket(max(n, 1), minimum=64)
+            b = _bucket(max(n, 1), minimum=64, multiple=index_shards(mesh)
+                        if mesh is not None else 1)
             colors = np.zeros((b, NUM_COLORS, 3), dtype=np.float32)
             counts = np.zeros(b, dtype=np.int32)
             valid = np.zeros(b, dtype=bool)
@@ -500,8 +509,10 @@ class PackedColorStore:
                 colors[:n] = dequantize_luv(self._descs[:, :NUM_COLORS, :3])
                 counts[:n] = self._descs[:, NUM_COLORS, 0]
                 valid[:n] = self._ids != 0
-            self._dev = tuple(torch.from_numpy(a).to(self.device)
-                              for a in (colors, counts, valid))
+            arrays = (colors, counts, valid)
+            self._dev = shard_rows(mesh, *arrays) if mesh is not None else \
+                tuple(torch.from_numpy(a).to(self.device) for a in arrays)
+            self._dev_mesh = mesh
         return self._dev
 
     def _needle_block(self, descs, size: int):
@@ -516,9 +527,16 @@ class PackedColorStore:
     def _topk(self, ncol: np.ndarray, ncnt: np.ndarray, k: int):
         """One needle block's top-k, read to the host."""
         colors_d, counts_d, valid_d = self.device_arrays()
-        scores, idx = color_topk(torch.from_numpy(ncol).to(self.device),
-                                 torch.from_numpy(ncnt).to(self.device),
-                                 colors_d, counts_d, valid_d, k=k)
+        ncol = torch.from_numpy(ncol).to(self.device)
+        ncnt = torch.from_numpy(ncnt).to(self.device)
+        if self._dev_mesh is not None:
+            from ..parallel.sharded import sharded_color_topk
+            scores, idx = sharded_color_topk(self._dev_mesh, ncol, ncnt,
+                                             colors_d, counts_d, valid_d,
+                                             k=k)
+        else:
+            scores, idx = color_topk(ncol, ncnt, colors_d, counts_d,
+                                     valid_d, k=k)
         return scores.cpu().numpy(), idx.cpu().numpy()
 
     def search(self, needle_descs: Sequence[Optional[np.ndarray]], k: int = 64,
@@ -543,14 +561,16 @@ class PackedColorStore:
                     sparse: bool = False):
         """N^2 color search: every store row scored against the whole
         store.  Default: the count-bucketed one-sided scan
-        (``_search_self_bucketed``); ``CBIRD_COLOR_BUCKETS=off`` selects
-        the unbucketed scan (``_search_self_scan``).
+        (``_search_self_bucketed``); on a mesh (its rows sharded) or with
+        ``CBIRD_COLOR_BUCKETS=off``, the unbucketed scan
+        (``_search_self_scan``).
 
         @return {row: (ids, scores)} when sparse else a dense list."""
         n = len(self._ids)
         if n == 0:
             return {} if sparse else []
-        if os.environ.get("CBIRD_COLOR_BUCKETS", "on") != "off":
+        if (_search_mesh(self.device) is None
+                and os.environ.get("CBIRD_COLOR_BUCKETS", "on") != "off"):
             return self._search_self_bucketed(k, needle_batch, sparse)
         return self._search_self_scan(k, needle_batch, sparse)
 

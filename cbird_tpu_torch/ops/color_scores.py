@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..device import launch_on, one_device
 from .exact32 import fma32, sqrt32
 
 NUM_COLORS = 32
@@ -159,7 +160,9 @@ def color_scores(n_colors: torch.Tensor, n_counts: torch.Tensor,
     """
     if side not in SIDES:
         raise ValueError(f"side must be one of {sorted(SIDES)}")
-    if n_colors.device.type == "cpu":
+    dev = one_device("color_scores", n_colors, n_counts, h_colors, h_counts,
+                     h_valid, out)
+    if dev.type == "cpu":
         res = color_scores_plain(n_colors, n_counts, h_colors, h_counts,
                                  h_valid, side, lo, hi, base)
         if out is None:
@@ -176,12 +179,12 @@ def color_scores(n_colors: torch.Tensor, n_counts: torch.Tensor,
         raise ValueError("bad output buffer")
     if q == 0 or c == 0:
         return out
-    stream = torch.cuda.current_stream(h_colors.device).cuda_stream
-    _build.check(lib, lib.cbird_color_scores(
-        n_colors.data_ptr(), n_counts.data_ptr(), q, h_colors.data_ptr(),
-        h_counts.data_ptr(), h_valid.data_ptr(), c, SIDES[side], base,
-        lo, min(hi, _NO_LIMIT), out.data_ptr(), out.stride(0), stream),
-        "color_scores")
+    with launch_on(dev):
+        _build.check(lib, lib.cbird_color_scores(
+            n_colors.data_ptr(), n_counts.data_ptr(), q, h_colors.data_ptr(),
+            h_counts.data_ptr(), h_valid.data_ptr(), c, SIDES[side], base,
+            lo, min(hi, _NO_LIMIT), out.data_ptr(), out.stride(0),
+            torch.cuda.current_stream(dev).cuda_stream), "color_scores")
     color_scores.launches += 1
     return out
 

@@ -25,6 +25,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..device import launch_on, one_device
 
 _M1 = 0x5555555555555555
 _M2 = 0x3333333333333333
@@ -115,22 +116,22 @@ def count_below(needles: torch.Tensor, hay: torch.Tensor, valid: torch.Tensor,
     @param needles [Q] int64, hay [N] int64, valid [N] bool
     @return [Q] int32 counts
     """
-    if needles.device.type == "cpu":
+    dev = one_device("count_below", needles, hay, valid)
+    if dev.type == "cpu":
         return count_below_plain(needles, hay, valid, threshold,
                                  masked=masked, row_base=row_base,
                                  col_base=col_base)
     lib = _load()
     check_operands(needles, hay, valid)
-    if needles.device.type != "cuda":
-        raise ValueError(f"count_below needs CUDA tensors, got "
-                         f"{needles.device}")
-    out = torch.empty(needles.numel(), dtype=torch.int32,
-                      device=needles.device)
-    err = getattr(lib, _FN)(
-        needles.data_ptr(), needles.numel(), hay.data_ptr(), valid.data_ptr(),
-        hay.numel(), int(threshold), int(masked), int(row_base),
-        int(col_base), out.data_ptr(),
-        torch.cuda.current_stream(needles.device).cuda_stream)
+    if dev.type != "cuda":
+        raise ValueError(f"count_below needs CUDA tensors, got {dev}")
+    out = torch.empty(needles.numel(), dtype=torch.int32, device=dev)
+    with launch_on(dev):
+        err = getattr(lib, _FN)(
+            needles.data_ptr(), needles.numel(), hay.data_ptr(),
+            valid.data_ptr(), hay.numel(), int(threshold), int(masked),
+            int(row_base), int(col_base), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "count_below")
     if masked:
         count_below.masked_launches += 1

@@ -37,6 +37,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..device import launch_on, one_device
 from .count_below import check_operands, chunk_cols
 
 _FN = "cbird_count_below_mma"
@@ -107,20 +108,21 @@ def count_below_mma(needles: torch.Tensor, hay: torch.Tensor,
     @return [Q] int32 counts
     """
     t = _check_threshold(threshold)
-    if needles.device.type == "cpu":
+    dev = one_device("count_below_mma", needles, hay, valid)
+    if dev.type == "cpu":
         return count_below_mma_plain(needles, hay, valid, t, masked=masked,
                                      row_base=row_base, col_base=col_base)
     lib = _load()
     check_operands(needles, hay, valid)
-    if needles.device.type != "cuda":
-        raise ValueError(f"count_below_mma needs CUDA tensors, got "
-                         f"{needles.device}")
-    out = torch.empty(needles.numel(), dtype=torch.int32,
-                      device=needles.device)
-    err = getattr(lib, _FN)(
-        needles.data_ptr(), needles.numel(), hay.data_ptr(), valid.data_ptr(),
-        hay.numel(), t, int(bf16), int(masked), int(row_base), int(col_base),
-        out.data_ptr(), torch.cuda.current_stream(needles.device).cuda_stream)
+    if dev.type != "cuda":
+        raise ValueError(f"count_below_mma needs CUDA tensors, got {dev}")
+    out = torch.empty(needles.numel(), dtype=torch.int32, device=dev)
+    with launch_on(dev):
+        err = getattr(lib, _FN)(
+            needles.data_ptr(), needles.numel(), hay.data_ptr(),
+            valid.data_ptr(), hay.numel(), t, int(bf16), int(masked),
+            int(row_base), int(col_base), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "count_below_mma")
     if bf16:
         count_below_mma.bf16_launches += 1

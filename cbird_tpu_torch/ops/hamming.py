@@ -1,12 +1,20 @@
-"""Packed Hamming hash store on one PyTorch device.
+"""Packed Hamming hash store on a PyTorch device or a mesh of them.
 
-Port of ``cbird_tpu/ops/hamming.py`` ``PackedHashStore`` on one device,
-with the reference's choice of count phase for ``search_self``: the
-pigeonhole sorted count (``ops/pigeonhole.py``, kernel K3) when it is
-enabled (``CBIRD_PIGEONHOLE``, default on) and the store and threshold
-are in its sweet spot, else the classic triangle.  Both are exact, so the
-result sets are the same.  The mesh branches and the pigeonhole hit
-extraction are not ported.
+Port of ``cbird_tpu/ops/hamming.py`` ``PackedHashStore``, with the
+reference's choice of count phase for ``search_self``: the pigeonhole
+sorted count (``ops/pigeonhole.py``, kernel K3) when it is enabled
+(``CBIRD_PIGEONHOLE``, default on) and the store and threshold are in its
+sweet spot, else the classic triangle.  Both are exact, so the result sets
+are the same.  The pigeonhole hit extraction is not ported.
+
+Mesh (``parallel/sharded.py``): a store on CUDA shards itself over every
+local card when there are several (``_search_mesh``); ``use_mesh`` sets a
+mesh, or none, for the stores of a block of code (the tests shard over
+eight CPU shards).  On a mesh the store's rows are split over the index
+axis (padded to a multiple of the shards), the count gate and the top-k
+run on each shard and merge, and ``search_self`` counts over a copy of the
+store on every device (pigeonhole chunks or triangle blocks dealt round
+the devices); the results equal one device's.
 
 Layout: the host keeps [N] uint64 hashes and [N] uint32 media ids (id 0 is
 a tombstone, as in the reference); the device keeps [n_pad] int64 bit
@@ -29,6 +37,7 @@ should never rescan; ``rescanned`` reports how many rows it rescanned.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 
 import numpy as np
@@ -78,16 +87,53 @@ class IdRows:
         return self._order[lo:hi]
 
 
-def _bucket(n: int, minimum: int = 1024, chunk: int = 1 << 21) -> int:
+def _bucket(n: int, minimum: int = 1024, chunk: int = 1 << 21,
+            multiple: int = 1) -> int:
     """Device-array bucket size: powers of two for small stores, chunk
     multiples beyond one chunk (power-of-two padding would scan up to 2x
-    dead rows at 10M+ items).  Every self-search tile shape divides it."""
+    dead rows at 10M+ items).  Every self-search tile shape divides it
+    unless ``multiple`` (a mesh's index shard count) forces divisibility."""
     if n > chunk:
-        return -(-n // chunk) * chunk
-    b = minimum
-    while b < n:
-        b *= 2
+        b = -(-n // chunk) * chunk
+    else:
+        b = minimum
+        while b < n:
+            b *= 2
+    if multiple > 1:
+        b = -(-b // multiple) * multiple
     return b
+
+
+_NO_MESH = object()
+_MESHES: list = []   # use_mesh's stack
+_AUTO_MESH = None
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Stores shard over ``mesh`` inside the block (``None``: every store
+    stays on its own device, even with several cards)."""
+    _MESHES.append(_NO_MESH if mesh is None else mesh)
+    try:
+        yield mesh
+    finally:
+        _MESHES.pop()
+
+
+def _search_mesh(device=None):
+    """The mesh a store on ``device`` shards over, or None: the one
+    ``use_mesh`` set, else every local CUDA device when the store is on
+    CUDA and there are several (made once)."""
+    global _AUTO_MESH
+    if _MESHES:
+        return None if _MESHES[-1] is _NO_MESH else _MESHES[-1]
+    if (device is not None and torch.device(device).type == "cuda"
+            and torch.cuda.device_count() > 1):
+        if _AUTO_MESH is None:
+            from ..parallel.sharded import make_mesh
+            _AUTO_MESH = make_mesh()
+        return _AUTO_MESH
+    return None
 
 
 class PackedHashStore:
@@ -100,7 +146,11 @@ class PackedHashStore:
         self.device = resolve(device)
         self._hashes = np.zeros(0, dtype=np.uint64)
         self._ids = np.zeros(0, dtype=np.uint32)
-        self._dev = None  # (hashes [n_pad] int64, valid [n_pad] bool)
+        # (hashes [n_pad] int64, valid [n_pad] bool) on the device, or
+        # Sharded over _dev_mesh's index axis
+        self._dev = None
+        self._dev_mesh = None
+        self._dev_rep = None  # the mesh's whole copy for search_self
         self._id_rows: IdRows | None = None
         self._fp: str | None = None
         self.rescanned = 0  # rows the last search_self's verify rescanned
@@ -128,6 +178,7 @@ class PackedHashStore:
 
     def _invalidate(self) -> None:
         self._dev = None
+        self._dev_rep = None
         self._id_rows = None
         self._fp = None
 
@@ -172,27 +223,70 @@ class PackedHashStore:
             self._fp = h.hexdigest()
         return self._fp
 
-    def _device_arrays(self) -> tuple[torch.Tensor, torch.Tensor]:
-        if self._dev is None:
-            n = len(self._hashes)
-            b = _bucket(max(n, 1))
-            hashes = np.zeros(b, dtype=np.int64)
-            valid = np.zeros(b, dtype=bool)
-            hashes[:n] = self._hashes.view(np.int64)
-            valid[:n] = self._ids != 0
-            self._dev = (torch.from_numpy(hashes).to(self.device),
-                         torch.from_numpy(valid).to(self.device))
+    def _host_bucket_arrays(self, shards: int = 1):
+        """@param shards pad to a multiple of the index shard count (the
+        sharded placement; the whole copy of ``search_self`` on a mesh
+        must not: a 3- or 6-shard mesh would give a bucket the
+        power-of-two tiles do not divide)"""
+        n = len(self._hashes)
+        b = _bucket(max(n, 1), multiple=shards)
+        hashes = np.zeros(b, dtype=np.int64)
+        valid = np.zeros(b, dtype=bool)
+        hashes[:n] = self._hashes.view(np.int64)
+        valid[:n] = self._ids != 0
+        return hashes, valid
+
+    def _device_arrays(self):
+        """(hashes, valid) on the device, or ``Sharded`` over the mesh."""
+        mesh = _search_mesh(self.device)
+        if self._dev is None or self._dev_mesh is not mesh:
+            if mesh is None:
+                self._dev = tuple(torch.from_numpy(a).to(self.device)
+                                  for a in self._host_bucket_arrays())
+            else:
+                from ..parallel.sharded import index_shards, \
+                    shard_index_arrays
+                self._dev = shard_index_arrays(
+                    mesh, *self._host_bucket_arrays(index_shards(mesh)))
+            self._dev_mesh = mesh
         return self._dev
+
+    def _device_arrays_replicated(self, mesh):
+        """The whole store on the mesh's lead device, bucketed without the
+        shard multiple: the count phase of ``search_self`` copies it to
+        every device, and the top-k phase takes its needles from it."""
+        if self._dev_rep is None or self._dev_rep[0] is not mesh:
+            self._dev_rep = (mesh, tuple(
+                torch.from_numpy(a).to(mesh.lead)
+                for a in self._host_bucket_arrays()))
+        return self._dev_rep[1]
 
     def _needles(self, needle_hashes: np.ndarray) -> torch.Tensor:
         h = np.ascontiguousarray(needle_hashes, dtype=np.uint64).view(np.int64)
         return torch.from_numpy(h).to(self.device)
 
     @staticmethod
+    def _count_call(needles: torch.Tensor, hashes_dev, valid_dev,
+                    threshold: int) -> torch.Tensor:
+        """The count gate: K1-mma, on each shard of sharded arrays."""
+        mesh = getattr(hashes_dev, "mesh", None)
+        if mesh is not None:
+            from ..parallel.sharded import sharded_count_below
+            return sharded_count_below(mesh, needles, hashes_dev, valid_dev,
+                                       threshold)
+        return count_gate(needles, hashes_dev, valid_dev, threshold)
+
+    @staticmethod
     def _topk_call(needles: torch.Tensor, hashes_dev, valid_dev, k: int,
                    threshold: int, rescan: bool = False):
-        """Exact top-k below ``threshold``; ``rescan`` marks the verify
-        step's rescans (the kernel is exact either way)."""
+        """Exact top-k below ``threshold`` (K4, on each shard of sharded
+        arrays); ``rescan`` marks the verify step's rescans (the kernel is
+        exact either way)."""
+        mesh = getattr(hashes_dev, "mesh", None)
+        if mesh is not None:
+            from ..parallel.sharded import sharded_hamming_topk
+            return sharded_hamming_topk(mesh, needles, hashes_dev, valid_dev,
+                                        k=k, bound=threshold)
         return hamming_topk(needles, hashes_dev, valid_dev, k, threshold)
 
     def search(self, needle_hashes: np.ndarray, threshold: int, k: int = 64,
@@ -223,8 +317,8 @@ class PackedHashStore:
         hot = np.arange(q_total)
         if len(self._hashes) > 4096 and q_total > 64:
             # count gate: only needles with min_hits hits reach the top-k
-            counts = count_gate(needles, hashes_dev, valid_dev,
-                                threshold).cpu().numpy()
+            counts = self._count_call(needles, hashes_dev, valid_dev,
+                                      threshold).cpu().numpy()
             hot = np.nonzero(counts >= min_hits)[0]
             if len(hot) == 0:
                 return results
@@ -248,14 +342,20 @@ class PackedHashStore:
         self.pigeonhole = None
         if n == 0:
             return {} if sparse else []
-        if n <= min_n:
-            # small stores are count-phase-cheap: plain two-phase path
+        mesh = _search_mesh(self.device)
+        if n <= min_n or (mesh is not None and n > 1 << 28):
+            # small stores are count-phase-cheap: plain two-phase path;
+            # gigantic ones cannot keep a whole copy on every device
             dense = self.search(self._hashes, threshold, k, min_hits=2)
             if sparse:
                 return {r: v for r, v in enumerate(dense) if len(v[0])}
             return dense
         hashes_dev, valid_dev = self._device_arrays()
-        n_pad = hashes_dev.numel()
+        # the count phase's store (a whole copy, on a mesh) and the top-k's
+        # needles: the store rows
+        hashes_all, valid_all = (hashes_dev, valid_dev) if mesh is None \
+            else self._device_arrays_replicated(mesh)
+        n_pad = hashes_all.numel()
         if not rows:
             rows = 16384 if n_pad <= 1 << 20 else 32768
         if not cols:
@@ -273,14 +373,20 @@ class PackedHashStore:
             # triangle at small thresholds; None outside its sweet spot
             stats: dict = {}
             sp = pigeonhole.self_counts_sparse(
-                hashes_dev, valid_dev, threshold,
-                int(np.count_nonzero(self._ids)), stats=stats)
+                hashes_all, valid_all, threshold,
+                int(np.count_nonzero(self._ids)), stats=stats, mesh=mesh)
             if sp is not None:
                 hot, hot_counts = sp
                 self.pigeonhole = stats
         if hot is None:
-            counts = self._classic_self_counts(hashes_dev, valid_dev,
-                                               threshold, n_pad, rows, cols)
+            if mesh is None:
+                counts = self._classic_self_counts(
+                    hashes_dev, valid_dev, threshold, n_pad, rows, cols)
+            else:
+                # the triangle's blocks dealt round the mesh's devices
+                from ..parallel.sharded import sharded_self_count
+                counts = sharded_self_count(mesh, hashes_all, valid_all,
+                                            threshold, rows, cols)[:n]
             hot = np.nonzero(counts >= 1)[0]
             hot_counts = counts[hot]
         hot = hot[hot < n]  # bucket padding rows are never truly hot
@@ -291,7 +397,7 @@ class PackedHashStore:
         results: dict = {}
         if len(hot) == 0:
             return self._self_result(results, n, sparse)
-        needles = hashes_dev  # the store rows are the needles
+        needles = hashes_all  # the store rows are the needles
         self._topk_phase(needles, hot, results, hashes_dev, valid_dev,
                          threshold, k, needle_batch)
         # Saturation escalation: a hot needle whose list filled to k may
@@ -442,7 +548,8 @@ class PackedHashStore:
         count gate; fills and returns ``results`` with the store rows and
         dists of hits below the threshold, ascending by (distance, store
         row) — the kernel's order."""
-        hot_dev = torch.as_tensor(np.asarray(hot, np.int64), device=self.device)
+        hot_dev = torch.as_tensor(np.asarray(hot, np.int64),
+                                  device=needles.device)
         for s in range(0, len(hot), needle_batch):
             sel = hot[s:s + needle_batch]
             d, i = self._topk_call(needles[hot_dev[s:s + needle_batch]],

@@ -36,6 +36,7 @@ import functools
 import torch
 
 from .. import _build
+from ..device import launch_on, one_device
 from .count_below import chunk_cols, popcount64
 
 BAD_DIST = 0x7FFF
@@ -190,7 +191,8 @@ def hamming_lanes_topk(needles: torch.Tensor, hay: torch.Tensor,
     @return (dists [Q, k] int32 ascending, rows [Q, k] int32)
     """
     k, bound = int(k), max(0, min(int(bound), BINS))
-    if needles.device.type == "cpu":
+    dev = one_device("hamming_lanes_topk", needles, hay, valid)
+    if dev.type == "cpu":
         return hamming_lanes_topk_plain(needles, hay, valid, k, bound)
     lib, q, n, dists, rows, sms = _prepare(needles, hay, valid, k,
                                            "hamming_lanes_topk")
@@ -198,12 +200,13 @@ def hamming_lanes_topk(needles: torch.Tensor, hay: torch.Tensor,
         return dists, rows
     xc, chunk = tc_plan(q, n, sms)
     scratch = torch.empty(max(xc, 1) * list_size(k) * q, dtype=torch.int64,
-                          device=needles.device)
-    stream = torch.cuda.current_stream(needles.device).cuda_stream
-    _build.check(lib, lib.cbird_lanes_topk(
-        needles.data_ptr(), q, hay.data_ptr(), valid.data_ptr(), n, k,
-        bound, xc, chunk, scratch.data_ptr(), dists.data_ptr(),
-        rows.data_ptr(), stream), "lanes_topk")
+                          device=dev)
+    with launch_on(dev):
+        _build.check(lib, lib.cbird_lanes_topk(
+            needles.data_ptr(), q, hay.data_ptr(), valid.data_ptr(), n, k,
+            bound, xc, chunk, scratch.data_ptr(), dists.data_ptr(),
+            rows.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
+            "lanes_topk")
     hamming_lanes_topk.launches += 1
     return dists, rows
 
@@ -215,7 +218,8 @@ def hamming_lanes_topk_popc(needles: torch.Tensor, hay: torch.Tensor,
                             valid: torch.Tensor, k: int, bound: int = BINS):
     """The same by the kernel's popcount form (the yardstick)."""
     k, bound = int(k), max(0, min(int(bound), BINS))
-    if needles.device.type == "cpu":
+    dev = one_device("hamming_lanes_topk_popc", needles, hay, valid)
+    if dev.type == "cpu":
         return hamming_lanes_topk_plain(needles, hay, valid, k, bound)
     lib, q, n, dists, rows, sms = _prepare(needles, hay, valid, k,
                                            "hamming_lanes_topk_popc")
@@ -223,12 +227,13 @@ def hamming_lanes_topk_popc(needles: torch.Tensor, hay: torch.Tensor,
         return dists, rows
     splits = splits_for(q, n, sms)
     scratch = torch.empty(splits * list_size(k) * q, dtype=torch.int64,
-                          device=needles.device)
-    stream = torch.cuda.current_stream(needles.device).cuda_stream
-    _build.check(lib, lib.cbird_lanes_topk_popc(
-        needles.data_ptr(), q, hay.data_ptr(), valid.data_ptr(), n, k,
-        bound, splits, scratch.data_ptr(), dists.data_ptr(),
-        rows.data_ptr(), stream), "lanes_topk_popc")
+                          device=dev)
+    with launch_on(dev):
+        _build.check(lib, lib.cbird_lanes_topk_popc(
+            needles.data_ptr(), q, hay.data_ptr(), valid.data_ptr(), n, k,
+            bound, splits, scratch.data_ptr(), dists.data_ptr(),
+            rows.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
+            "lanes_topk_popc")
     hamming_lanes_topk_popc.launches += 1
     return dists, rows
 

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..device import launch_on, one_device
 from .count_below import check_operands, chunk_cols, popcount64
 
 BAD_DIST = 0x7FFF
@@ -206,22 +207,23 @@ def hamming_topk(needles: torch.Tensor, hay: torch.Tensor,
     @return (dists [Q, k] int32 ascending, rows [Q, k] int32)
     """
     k, bound = int(k), max(0, min(int(bound), BINS))
-    if needles.device.type == "cpu":
+    dev = one_device("hamming_topk", needles, hay, valid)
+    if dev.type == "cpu":
         return hamming_topk_plain(needles, hay, valid, k, bound)
     lib = _load()
     check_operands(needles, hay, valid)
-    if needles.device.type != "cuda":
-        raise ValueError(f"hamming_topk needs CUDA tensors, got "
-                         f"{needles.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"hamming_topk needs CUDA tensors, got {dev}")
     n = hay.numel()
-    stream = torch.cuda.current_stream(needles.device).cuda_stream
+    stream = torch.cuda.current_stream(dev).cuda_stream
 
     def scan(nd, rows, hist, cut, c_all, cursor, keys):
         _build.check(lib, lib.cbird_topk_scan(
             nd.data_ptr(), _ptr(rows), cursor.numel(), hay.data_ptr(),
             valid.data_ptr(), n, bound, _ptr(hist), _ptr(cut), c_all,
             cursor.data_ptr(), keys.data_ptr(), stream), "topk_scan")
-    out, second = topk_passes(scan, needles, n, k)
+    with launch_on(dev):
+        out, second = topk_passes(scan, needles, n, k)
     if needles.numel() and n and k:
         hamming_topk.launches += 1
     hamming_topk.overflowed += second

@@ -1,7 +1,7 @@
-"""Packed per-video frame-hash store on one PyTorch device.
+"""Packed per-video frame-hash store on a PyTorch device or a mesh.
 
-Port of ``cbird_tpu/ops/video_search.py`` ``PackedVideoStore`` on one
-device (the mesh branches are not ported).  All videos' retained frame
+Port of ``cbird_tpu/ops/video_search.py`` ``PackedVideoStore``.  All
+videos' retained frame
 hashes live in one packed array with a parallel video-slot column; the
 video index (``index/dct_video_index.py``) searches it three ways:
 
@@ -19,7 +19,12 @@ video index (``index/dct_video_index.py``) searches it three ways:
 
 Device layout: [F_pad] int64 hash bit patterns, int32 video slots and
 frame numbers, bool validity (frames of removed videos are invalid),
-padded to ``ops.hamming._bucket`` rows.
+padded to ``ops.hamming._bucket`` rows.  On a mesh (``ops/hamming.py``
+``_search_mesh``) the frame rows are split over its index axis, padded to
+a multiple of the shards, and the three searches run on each shard and
+join (``parallel/sharded.py``: ``sharded_flat_counts``,
+``sharded_hamming_topk``, ``sharded_frame_search``); video slots stay
+global.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import torch
 from ..device import resolve
 from .count_below import chunk_cols, popcount64
 from .count_below_mma import count_gate
-from .hamming import PackedHashStore, _bucket
+from .hamming import PackedHashStore, _bucket, _search_mesh
 from .hamming_topk import hamming_topk
 
 _FRAME_BITS = 24
@@ -48,6 +53,16 @@ def frame_search(needles: torch.Tensor, hashes: torch.Tensor,
     @param needles [Q] int64; hashes [F] int64; vidx [F] int32 video
     slot per frame; frame_no [F] int32; valid [F] bool
     @return (min_dist [Q, V] int32, 65 = no match; min_frame [Q, V])"""
+    acc = frame_search_packed(needles, hashes, vidx, frame_no, valid,
+                              num_videos)
+    return acc >> _FRAME_BITS, acc & _FRAME_MASK
+
+
+def frame_search_packed(needles: torch.Tensor, hashes: torch.Tensor,
+                        vidx: torch.Tensor, frame_no: torch.Tensor,
+                        valid: torch.Tensor, num_videos: int) -> torch.Tensor:
+    """``frame_search``'s packed minima [Q, V] int32 (d << 24 | frame;
+    ``_BIG`` = no match), which a minimum across shards joins."""
     q = needles.numel()
     dev = needles.device
     acc = torch.full((q, num_videos), _BIG, dtype=torch.int32, device=dev)
@@ -61,7 +76,7 @@ def frame_search(needles: torch.Tensor, hashes: torch.Tensor,
         packed = torch.where(valid[None, c0:c0 + chunk], packed, _BIG)
         slot = vidx[c0:c0 + chunk].long()[None, :].expand(q, -1)
         acc.scatter_reduce_(1, slot, packed.to(torch.int32), "amin")
-    return acc >> _FRAME_BITS, acc & _FRAME_MASK
+    return acc
 
 
 class PackedVideoStore:
@@ -78,6 +93,7 @@ class PackedVideoStore:
         # concatenate per add_video would make a V-video ingest O(V^2)
         self._pending: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
         self._dev = None
+        self._dev_mesh = None     # the mesh _dev is sharded over
         self._by_slot = None      # slot -> stored hashes (built lazily)
         self._hash_store = None   # frame rows as a PackedHashStore (lazily)
 
@@ -148,11 +164,14 @@ class PackedVideoStore:
 
     def _device(self):
         """@return (hashes int64, vidx int32, frames int32, valid bool),
-        each [F_pad] on the device"""
-        if self._dev is None:
+        each [F_pad] on the device, or ``Sharded`` over the mesh"""
+        mesh = _search_mesh(self.device)
+        if self._dev is None or self._dev_mesh is not mesh:
+            from ..parallel.sharded import index_shards, shard_rows
             self._consolidate()
             n = len(self._hashes)
-            fb = _bucket(max(n, 1))
+            fb = _bucket(max(n, 1), multiple=index_shards(mesh)
+                         if mesh is not None else 1)
             hashes = np.zeros(fb, np.int64)
             vidx = np.zeros(fb, np.int32)
             frames = np.zeros(fb, np.int32)
@@ -163,8 +182,10 @@ class PackedVideoStore:
                 frames[:n] = self._frames
                 alive = np.array([bool(m) for m in self._media_ids], bool)
                 valid[:n] = alive[self._vidx]
-            self._dev = tuple(torch.from_numpy(a).to(self.device)
-                              for a in (hashes, vidx, frames, valid))
+            arrays = (hashes, vidx, frames, valid)
+            self._dev = shard_rows(mesh, *arrays) if mesh is not None else \
+                tuple(torch.from_numpy(a).to(self.device) for a in arrays)
+            self._dev_mesh = mesh
         return self._dev
 
     def _needles(self, needle_hashes: np.ndarray) -> torch.Tensor:
@@ -185,9 +206,16 @@ class PackedVideoStore:
             return np.zeros(n, np.int32)
         hashes, _, _, valid = self._device()
         needles = self._needles(needle_hashes)
-        parts = [count_gate(needles[s0:s0 + needle_batch], hashes, valid,
-                            threshold)
-                 for s0 in range(0, n, needle_batch)]
+        mesh = self._dev_mesh
+        if mesh is not None:
+            from ..parallel.sharded import sharded_flat_counts
+            parts = [sharded_flat_counts(mesh, needles[s0:s0 + needle_batch],
+                                         hashes, valid, threshold)
+                     for s0 in range(0, n, needle_batch)]
+        else:
+            parts = [count_gate(needles[s0:s0 + needle_batch], hashes,
+                                valid, threshold)
+                     for s0 in range(0, n, needle_batch)]
         return torch.cat(parts).cpu().numpy().astype(np.int32)
 
     def row_maps(self):
@@ -242,15 +270,21 @@ class PackedVideoStore:
         hashes, _, _, valid = self._device()
         needles = self._needles(needle_hashes)
         hot_dev = torch.from_numpy(hot.astype(np.int64)).to(self.device)
+        mesh = self._dev_mesh
         for s in range(0, len(hot), needle_batch):
             sel = hot[s:s + needle_batch]
             # k per batch (a power of two <= k_cap), so one hot needle
             # elsewhere does not inflate every readback
             k = int(min(k_cap, max(64, 1 << int(counts[sel].max() - 1)
                                    .bit_length())))
-            k = min(k, hashes.numel())
-            d, i = hamming_topk(needles[hot_dev[s:s + needle_batch]], hashes,
-                                valid, k, threshold)
+            k = min(k, hashes.shape[0])
+            nb = needles[hot_dev[s:s + needle_batch]]
+            if mesh is not None:
+                from ..parallel.sharded import sharded_hamming_topk
+                d, i = sharded_hamming_topk(mesh, nb, hashes, valid, k=k,
+                                            bound=threshold)
+            else:
+                d, i = hamming_topk(nb, hashes, valid, k, threshold)
             d, i = d.cpu().numpy(), i.cpu().numpy()
             hit = d < threshold
             got = hit.sum(axis=1)
@@ -279,9 +313,16 @@ class PackedVideoStore:
         needles = self._needles(needle_hashes)
         out_d = np.zeros((q_total, v), np.int32)
         out_f = np.zeros((q_total, v), np.int32)
+        mesh = self._dev_mesh
         for s in range(0, q_total, needle_batch):
-            d, fr = frame_search(needles[s:s + needle_batch], hashes, vidx,
-                                 frames, valid, v)
+            if mesh is not None:
+                from ..parallel.sharded import sharded_frame_search
+                d, fr = sharded_frame_search(
+                    mesh, needles[s:s + needle_batch], hashes, vidx, frames,
+                    valid, v)
+            else:
+                d, fr = frame_search(needles[s:s + needle_batch], hashes,
+                                     vidx, frames, valid, v)
             out_d[s:s + needle_batch] = d.cpu().numpy()
             out_f[s:s + needle_batch] = fr.cpu().numpy()
         return out_d, out_f

@@ -109,6 +109,20 @@ Phases, each printed on its own line (pass/fail, numbers, wall ms, card):
            with -p.tm), -similar-to through the CLI with CBIRD_SERVER,
            stop; each answer equal to the same -similar-to in process;
            first and warm p50 / p99 ms a kind of query
+  mesh     the stores on a mesh of MESH_SHARDS shards of this card (the
+           (2, 4) mesh of the JAX tests; also on a mesh of every card when
+           there are several), each result equal, bit for bit, to the same
+           store's on one device, walls side by side: 1- and 1024-needle
+           search over a 10M-row store, search_self(5, k=64) through the
+           pigeonhole count at 2M rows (with a 5000-row equal-key run: run
+           tiles) and the triangle at 1M, video (a) and (b) at 4096 x 512
+           frames, orb -similar-to of 16 images over 2^20 descriptors,
+           color -similar-to of 64 needles over 2^20 rows and -similar
+           over 2^16 rows (bucketed on one device, the scan on a mesh);
+           then torch.distributed at world size 1 (CUDA collectives on
+           NCCL): the 1M store's self-search through the triangle and
+           the pigeonhole on make_multihost_mesh's mesh, and the all-pairs
+           step of 4096 needles, against one device
 
 The kernels phase also holds K5 (the 256-bit k-nearest search on the
 tensor cores) and K5-popc (its popcount form, the yardstick) against
@@ -135,7 +149,7 @@ the card's peak; the rate chip_bounds.py's probe of that color-pair step
 sustains is printed beside it (probed_k6_step_per_clk_sm).
 
 The main path is query, self, ph, video, vcli, cli, feat, fdct, orb,
-fcli, cdesc, color, ccli, tm and serve: the launch
+fcli, cdesc, color, ccli, tm, serve and mesh: the launch
 counters are zeroed just before each of them and read just after; every
 kernel must have run there, but for the bf16 form of K1-mma and the
 popcount K1 and K2 (the yardstick of the tensor-core forms), which only
@@ -166,7 +180,9 @@ import contextlib
 import gc
 import io
 import json
+import operator
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -277,6 +293,8 @@ CCLI_SOURCES = 12
 TM_SOURCES, TM_DISTRACTORS = 256, 256
 TM_SAMPLED_PAIRS, TM_CPU_GROUPS, TM_CASES = 64, 16, 6
 SERVE_QUERIES, SERVE_TM = 64, 8
+# the mesh phase's shards of this card: the (2, 4) mesh of the JAX tests
+MESH_SHARDS = 8
 # chip_bounds.py's probe library (the SM clock for the bounds)
 PROBE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                          "probes")
@@ -3099,6 +3117,198 @@ class Smoke:
             import shutil
             shutil.rmtree(d, ignore_errors=True)
 
+    # ---- mesh -------------------------------------------------------------
+    def mesh_compare(self, out: dict, meshes: dict, what: str, fn, same):
+        """``fn`` on one device, then on each mesh (each after a warm-up
+        call that places the store), each result ``same`` as one device's.
+        Walls (ms, to the card's idle) into ``out[what]``."""
+        from cbird_tpu_torch.ops.hamming import use_mesh
+        with use_mesh(None):
+            fn()
+            wall, want = self.timed(fn)
+        row = {"single_ms": round(wall, 1)}
+        for name, mesh in meshes.items():
+            with use_mesh(mesh):
+                fn()
+                wall, got = self.timed(fn)
+            if not same(want, got):
+                raise AssertionError(f"mesh {name}: {what} differs from one "
+                                     f"device's")
+            row[f"{name}_ms"] = round(wall, 1)
+        out[what] = row
+        return want
+
+    @staticmethod
+    def same_lists(a, b) -> bool:
+        """Dense lists or sparse dicts of (ids, values), entry for entry."""
+        if isinstance(a, dict):
+            if sorted(a) != sorted(b):
+                return False
+            a, b = [a[r] for r in sorted(a)], [b[r] for r in sorted(b)]
+        return len(a) == len(b) and all(
+            np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1])
+            for x, y in zip(a, b))
+
+    def mesh_phase(self):
+        """The mesh (parallel/sharded.py) at full size: each result on a
+        mesh of MESH_SHARDS shards of this card, the (2, 4) mesh of the JAX
+        tests (and on a mesh of every card when there are several), against
+        the same store's one-device result, bit for bit, walls side by
+        side; then the process path at world size 1 on NCCL."""
+        torch = self.torch
+        from cbird_tpu_torch.ops import pigeonhole as ph
+        from cbird_tpu_torch.ops.color import PackedColorStore
+        from cbird_tpu_torch.ops.hamming import PackedHashStore, use_mesh
+        from cbird_tpu_torch.ops.hamming_topk import hamming_topk
+        from cbird_tpu_torch.parallel import sharded as shd
+        from cbird_tpu_torch.params import SearchParams
+        from cbird_tpu_torch.store.media import Media
+        card = torch.device("cuda", torch.cuda.current_device())
+        meshes = {"shards8": shd.make_mesh([card] * MESH_SHARDS)}
+        if torch.cuda.device_count() > 1:
+            meshes["cards"] = shd.make_mesh()
+        out = {"meshes": {k: [list(map(str, r)) for r in m.devices]
+                          for k, m in meshes.items()}}
+        cmp = lambda what, fn, same=self.same_lists: self.mesh_compare(
+            out, meshes, what, fn, same)
+        sp = SearchParams()
+        rng = np.random.default_rng(SEED + 51)
+
+        # the dct store: 10M rows, 1- and 1024-needle search
+        hashes, ids, src, _, dead = self.planted_store(10_000_000, 1000, rng)
+        store = PackedHashStore(hashes, ids, device=self.dev)
+        store.remove(dead)
+        for q in (1, 1024):
+            needles = np.r_[hashes[src[:min(q, 1000)]], rng.integers(
+                1, 2**64, size=max(0, q - 1000), dtype=np.uint64)]
+            cmp(f"search_q{q}_10M", lambda: store.search(needles, T, k=64))
+        if not isinstance(store._dev[0], shd.Sharded):
+            raise AssertionError("the store was not sharded on the mesh")
+        del store
+        # search_self: the pigeonhole count at 2M (with the ph phase's
+        # run of 5000 rows that share block 0's key: run tiles), the
+        # triangle at 1M
+        for n, route in ((2_000_000, "pigeonhole"), (SELF_ROWS, "triangle")):
+            hashes, ids, src, dst, dead = self.planted_store(n, 1000, rng)
+            if route == "pigeonhole":
+                m0 = np.uint64(ph.mask64(ph.block_masks(T)[0]) % 2**64)
+                clus = rng.choice(np.setdiff1d(np.arange(n), np.r_[src, dst]),
+                                  5000, replace=False)
+                hashes[clus] = (hashes[clus] & ~m0) | (hashes[clus[0]] & m0)
+            store = PackedHashStore(hashes, ids, device=self.dev)
+            store.remove(dead)
+            if route == "triangle":
+                os.environ["CBIRD_PIGEONHOLE"] = "off"
+            try:
+                res = cmp(f"search_self_{route}_{n}",
+                          lambda: store.search_self(T, k=64, sparse=True))
+            finally:
+                os.environ.pop("CBIRD_PIGEONHOLE", None)
+            self.check_planted(res, ids, src, dst)
+            if (store.pigeonhole is None) != (route == "triangle") \
+                    or store.rescanned:
+                raise AssertionError(f"{route}: pigeonhole "
+                                     f"{store.pigeonhole}, rescanned "
+                                     f"{store.rescanned}")
+            if route == "pigeonhole":
+                out["run_tiles_per_block"] = store.pigeonhole["run_tiles"]
+            if route == "triangle":
+                tri = (store, res)
+            else:
+                del store
+        # video (a) -similar and (b) -similar-to a 16384-frame needle
+        data = self.video_data(np.random.default_rng(SEED + 8))
+        idx, h = self.video_index(data, black=False)
+        needles, _ = self.video_live(data, h)
+        cmp("video_a", lambda: idx.find_batch(needles, sp), operator.eq)
+        del idx, needles
+        idx, h = self.video_index(data, black=True)
+        needle, _, _ = self.video_needle(data, h, rng)
+        cmp("video_b", lambda: idx.find(needle, sp), operator.eq)
+        del idx, data, h
+        # orb -similar-to of 16 images over 2^20 descriptor rows
+        idx, desc, groups = self.orb_index(np.random.default_rng(SEED + 22))
+        needles = []
+        for s, _ in groups[:FEAT_NEEDLES]:
+            m = Media(f"/needle/{s}.png")
+            m.keyPointDescriptors = desc[(s - 1) * KP:s * KP].view(
+                np.uint8).reshape(KP, 32)
+            needles.append(m)
+        cmp("orb_similar_to_16", lambda: idx.find_batch(needles, sp),
+            operator.eq)
+        del idx, desc
+        # color: -similar-to of 64 needles over 2^20 rows; -similar over
+        # 2^16 rows, bucketed on one device and through the scan on a mesh
+        descs, cids, cgroups = self.color_store(
+            np.random.default_rng(SEED + 32),
+            getattr(self, "color_hist", None))
+        idx = self.color_index(descs, cids, self.dev)
+        needles = self.color_needles(descs, cgroups)
+        cmp("color_similar_to_64", lambda: idx.find_batch(needles, sp),
+            operator.eq)
+        del idx
+        n = COLOR_SIMILAR_ROWS
+        store = PackedColorStore(self.dev)
+        store.add(descs[:n], cids[:n])
+        k = sp.maxMatches + 8
+        cmp("color_similar_65536", lambda: store.search_self(k=k,
+                                                             sparse=True))
+        with use_mesh(None):
+            os.environ["CBIRD_COLOR_BUCKETS"] = "off"
+            try:
+                wall, _ = self.timed(lambda: store.search_self(k=k,
+                                                               sparse=True))
+            finally:
+                del os.environ["CBIRD_COLOR_BUCKETS"]
+        out["color_similar_65536"]["single_scan_ms"] = round(wall, 1)
+        del store, descs
+        torch.cuda.empty_cache()
+
+        # the process path: torch.distributed at world size 1 (its CUDA
+        # collectives on NCCL), the shards8 mesh from make_multihost_mesh:
+        # the triangle's counts (all_reduce), the pigeonhole's block
+        # states (all_reduce) and the all-pairs step's rows
+        # (all_gather_into_tensor) against one device
+        store, res = tri
+        port = free_port()
+        world = shd.init_distributed(f"127.0.0.1:{port}", 1, 0)
+        try:
+            backend = str(torch.distributed.get_backend())
+            if world != 1 or "nccl" not in backend:
+                raise AssertionError(f"world {world}, backend {backend}")
+            mesh = shd.make_multihost_mesh(devices=[card] * MESH_SHARDS)
+            with use_mesh(mesh):
+                for mode in ("off", "on"):
+                    os.environ["CBIRD_PIGEONHOLE"] = mode
+                    try:
+                        got = store.search_self(T, k=64, sparse=True)
+                    finally:
+                        del os.environ["CBIRD_PIGEONHOLE"]
+                    if not self.same_lists(res, got):
+                        raise AssertionError(f"process path, pigeonhole "
+                                             f"{mode}: results differ")
+                hd, vd = store._device_arrays()
+                nd = store._needles(store.hashes[:4096])
+                d, i = shd.sharded_all_pairs_step(mesh, nd, hd, vd, k=16)
+            with use_mesh(None), self.uncounted():
+                hd1, vd1 = store._device_arrays()
+                d1, i1 = hamming_topk(nd, hd1, vd1, 16)
+            self.same(d, d1, "all-pairs dists")
+            self.same(i, i1, "all-pairs rows")
+        finally:
+            torch.distributed.destroy_process_group()
+        out["process_path"] = {"world": world, "backend": backend,
+                               "mesh": list(mesh.devices.shape)}
+        out["card"] = smi()
+        return out
+
+
+def free_port() -> int:
+    """A free TCP port on the loopback interface."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
 
 def color_image(rng, h: int, w: int) -> np.ndarray:
     """Eight color patches (as the tests' color images) on a color ramp,
@@ -3228,7 +3438,7 @@ def main() -> int:
                      ("orb", s.orb_phase), ("fcli", s.fcli_phase),
                      ("cdesc", s.cdesc_phase), ("color", s.color_phase),
                      ("ccli", s.color_cli_phase), ("tm", s.tm_phase),
-                     ("serve", s.serve_phase)):
+                     ("serve", s.serve_phase), ("mesh", s.mesh_phase)):
         s.set_launches(dict.fromkeys(s.counters, 0))
         second = hamming_topk.overflowed
         s.phase(name, fn)
