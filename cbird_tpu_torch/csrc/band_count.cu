@@ -54,9 +54,27 @@
 // near pairs), so their loads and POPCs overlap, then walks the near
 // pairs.
 //
-// Run tiles: each CUDA block takes ROWS rows of tile ta into registers and
-// one RUN_COLS-column slice of tile tb through shared memory, so even a
-// few tile pairs spread over the SMs.
+// Run tiles: the dense [s, s] tiles (ta, tb) of the equal-key runs longer
+// than the band.  A run of a duplicate cluster makes them hit-dense: every
+// pair of the tile may count.  The work unit is (tile pair, slice of
+// RUN_ROWS rows of tile ta, slice of columns of tile tb), RUN_RPT rows a
+// thread in registers, a block a unit; the unit streams its columns
+// through shared memory, RUN_CHUNK at a time.  The launcher cuts the
+// columns into slices so that the units fill the SMs about
+// UNITS_PER_BLOCK times over, and a few tile pairs still spread over every
+// SM.  A warp tests each of 32 columns against each of its rows and
+// credits it without a branch (the block keys and the earlier blocks'
+// masks too: a run tile's keys are mostly equal, so a distance-only pass
+// first saves nothing).  Row credits collect in registers, one atomicAdd a
+// row a unit.  A column's credits are bits of a 32-bit word a row, which
+// a warp transpose (five shuffle rounds) hands to the column's lane, then
+// a popc and a shared-memory sum over the block: one atomicAdd a column a
+// unit, where the per-hit form issued one a lane a hit.  The tile list
+// lies on the card ([P, 2] int32, built there from the runs' bounds,
+// ops/pigeonhole.py run_tile_pairs); a pair outside the order is skipped.
+// What bounds it: the 2 POPC an equal-key pair, as the band; the
+// chip_tune.py k3run forms (rows a thread, chunks, a persistent grid,
+// slices, unrolling) measured no faster.
 //
 // Masks ride in a by-value kernel argument (T <= 8).
 
@@ -69,10 +87,13 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS = 8;                 // warps per band block
 constexpr int SPAN = 128;                // columns a warp takes in turn
 static_assert(WARPS % 8 == 0 && SPAN % 32 == 0, "band block shape");
-constexpr int THREADS = 256;             // run-tile block
-constexpr int RPT = 4;                   // run-tile rows per thread
-constexpr int ROWS = THREADS * RPT;      // run-tile rows per block
-constexpr int RUN_COLS = 64;             // run-tile columns per block
+constexpr int RUN_THREADS = 256;         // run-tile block
+constexpr int RUN_RPT = 4;               // run-tile rows per thread
+constexpr int RUN_ROWS = RUN_THREADS * RUN_RPT;  // rows of ta a unit takes
+constexpr int RUN_CHUNK = 256;           // columns staged at a time
+constexpr int RUN_MIN_COLS = 64;         // the narrowest column slice
+constexpr int UNITS_PER_BLOCK = 8;       // times the units fill the SMs
+static_assert(RUN_CHUNK % 32 == 0 && RUN_MIN_COLS % 32 == 0, "run shape");
 constexpr int MAX_MASKS = 8;
 
 struct Masks {
@@ -186,54 +207,133 @@ band_kernel(const unsigned long long* __restrict__ sh,
   if (acc) atomicAdd(out + p, acc);
 }
 
-// blockIdx.x indexes the (ta, tb) list, y the ROWS-row slice of tile ta,
-// z the RUN_COLS-column slice of tile tb.
-__global__ void __launch_bounds__(THREADS)
+// A pair (x = a ^ b) of the run tiles counts in this block: its current
+// block keys are equal and each of the NM - 1 earlier blocks' differ; no
+// branch.
+template <int NM>
+__device__ __forceinline__ bool counts_here(unsigned long long x,
+                                            const Masks& masks) {
+  bool ok = (x & masks.m[0]) == 0ull;
+#pragma unroll
+  for (int i = 1; i < NM; ++i) ok &= (x & masks.m[i]) != 0ull;
+  return ok;
+}
+
+// 32 x 32 bits over a warp: bit c of lane r becomes bit r of lane c (five
+// rounds, each swapping the off-diagonal halves of 2s x 2s blocks).
+__device__ __forceinline__ unsigned transpose32(unsigned w, int lane) {
+  unsigned m = 0x0000ffffu;  // the columns c with c & s == 0
+#pragma unroll
+  for (int s = 16; s; s >>= 1) {
+    const unsigned o = __shfl_xor_sync(FULL, w, s);
+    w = (lane & s) ? (w & ~m) | ((o >> s) & m) : (w & m) | ((o & m) << s);
+    m ^= m << (s >> 1);
+  }
+  return w;
+}
+
+// A block a unit u = (pair * rs + row slice) * cs + column slice.  NM:
+// the number of masks.
+template <int NM>
+__global__ void __launch_bounds__(RUN_THREADS)
 run_kernel(const unsigned long long* __restrict__ sh,
            const int* __restrict__ srow, const bool* __restrict__ svalid,
-           int s, const Masks masks, int t, const int* __restrict__ tiles,
-           int* __restrict__ out) {
-  __shared__ unsigned long long c_hash[RUN_COLS];
-  __shared__ int c_row[RUN_COLS];  // original row, -1 when invalid
-  const int ta = tiles[2 * blockIdx.x], tb = tiles[2 * blockIdx.x + 1];
-  const int r_lo = ta * s + blockIdx.y * ROWS;
-  const int r_hi = min(ta * s + s, r_lo + ROWS);
-  const int c0 = tb * s + blockIdx.z * RUN_COLS;
-  const int nc = min(RUN_COLS, tb * s + s - c0);
-  const int tid = threadIdx.x;
-  for (int j = tid; j < nc; j += THREADS) {
-    c_hash[j] = sh[c0 + j];
-    c_row[j] = svalid[c0 + j] ? srow[c0 + j] : -1;
-  }
-  unsigned long long a[RPT];
-  int arow[RPT], acc[RPT];
+           int n_tot, int s, const Masks masks, int t,
+           const int* __restrict__ tiles, int rs, int cs,
+           int width, int* __restrict__ out) {
+  __shared__ unsigned long long c_hash[RUN_CHUNK];
+  __shared__ int c_row[RUN_CHUNK];   // original row, -1 when invalid
+  __shared__ int c_cred[RUN_CHUNK];  // the block's column credits
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int n_pad = n_tot - s;
+  for (int j = tid; j < RUN_CHUNK; j += RUN_THREADS) c_cred[j] = 0;
+  const long long u = blockIdx.x;  // the block's unit
+  const int g = (int)(u / ((long long)rs * cs));
+  const int r = (int)(u / cs % rs), c = (int)(u % cs);
+  const int ta = tiles[2 * g], tb = tiles[2 * g + 1];
+  if (ta < 0 || tb < ta + 2 || (long long)(tb + 1) * s > n_pad)
+    return;  // block-uniform: not a run tile of this order
+  const int r_lo = ta * s + r * RUN_ROWS;
+  const int r_hi = min(ta * s + s, r_lo + RUN_ROWS);
+  const int q_lo = tb * s + c * width;
+  const int q_hi = min(tb * s + s, q_lo + width);
+  unsigned long long a[RUN_RPT];
+  int arow[RUN_RPT], acc[RUN_RPT];
 #pragma unroll
-  for (int k = 0; k < RPT; ++k) {
-    const int p = r_lo + tid + k * THREADS;
+  for (int k = 0; k < RUN_RPT; ++k) {
+    const int p = r_lo + k * RUN_THREADS + tid;
     const bool in = p < r_hi;
     a[k] = in ? sh[p] : 0ull;
     arow[k] = (in && svalid[p]) ? srow[p] : -1;
     acc[k] = 0;
   }
-  __syncthreads();
-  const unsigned long long cur = masks.m[0];
-  for (int j = 0; j < nc; ++j) {
-    const unsigned long long b = c_hash[j];
+  for (int q0 = q_lo; q0 < q_hi; q0 += RUN_CHUNK) {
+    const int nc = min(RUN_CHUNK, q_hi - q0);
+    __syncthreads();  // the last chunk's readers are done
+    for (int j = tid; j < RUN_CHUNK; j += RUN_THREADS) {
+      const bool in = j < nc;
+      c_hash[j] = in ? sh[q0 + j] : 0ull;
+      c_row[j] = (in && svalid[q0 + j]) ? srow[q0 + j] : -1;
+    }
+    __syncthreads();
+    for (int j0 = 0; j0 < nc; j0 += 32) {
+      // every pair of 32 columns tested and credited without a branch:
+      // a row's credits in acc, a column's as bit j of cm (a row's)
+      unsigned cm[RUN_RPT];
 #pragma unroll
-    for (int k = 0; k < RPT; ++k) {
-      const unsigned long long x = a[k] ^ b;
-      if ((x & cur) == 0ull && __popcll(x) < t && arow[k] >= 0 &&
-          c_row[j] >= 0 && first_block(x, masks)) {
-        if (arow[k] < c_row[j])
-          ++acc[k];
-        else
-          atomicAdd(out + c0 + j, 1);
+      for (int k = 0; k < RUN_RPT; ++k) cm[k] = 0;
+#pragma unroll 4
+      for (int j = 0; j < 32; ++j) {
+        const unsigned long long b = c_hash[j0 + j];
+        const int cr = c_row[j0 + j];
+#pragma unroll
+        for (int k = 0; k < RUN_RPT; ++k) {
+          const unsigned long long x = a[k] ^ b;
+          const bool ok = (__popcll(x) < t) & counts_here<NM>(x, masks) &
+                          (arow[k] >= 0) & (cr >= 0);
+          acc[k] += ok & (arow[k] < cr);
+          cm[k] |= (unsigned)(ok & (arow[k] > cr)) << j;
+        }
+      }
+      // column j0 + lane's credits: bit lane of every lane's cm
+      int mycol = 0;
+#pragma unroll
+      for (int k = 0; k < RUN_RPT; ++k)
+        if (__any_sync(FULL, cm[k]))
+          mycol += __popc(transpose32(cm[k], lane));
+      if (mycol) atomicAdd(c_cred + j0 + lane, mycol);
+    }
+    __syncthreads();
+    for (int j = tid; j < nc; j += RUN_THREADS) {
+      const int v = c_cred[j];
+      if (v) {
+        atomicAdd(out + q0 + j, v);
+        c_cred[j] = 0;
       }
     }
   }
 #pragma unroll
-  for (int k = 0; k < RPT; ++k)
-    if (acc[k]) atomicAdd(out + r_lo + tid + k * THREADS, acc[k]);
+  for (int k = 0; k < RUN_RPT; ++k)
+    if (acc[k]) atomicAdd(out + r_lo + k * RUN_THREADS + tid, acc[k]);
+}
+
+typedef void (*RunKernel)(const unsigned long long*, const int*,
+                          const bool*, int, int, const Masks, int,
+                          const int*, int, int, int, int*);
+
+// run_kernel for n_masks masks (1..MAX_MASKS), or null
+RunKernel run_kernel_for(int n_masks) {
+  switch (n_masks) {
+    case 1: return run_kernel<1>;
+    case 2: return run_kernel<2>;
+    case 3: return run_kernel<3>;
+    case 4: return run_kernel<4>;
+    case 5: return run_kernel<5>;
+    case 6: return run_kernel<6>;
+    case 7: return run_kernel<7>;
+    case 8: return run_kernel<8>;
+  }
+  return nullptr;
 }
 
 // Warps that share the columns of 32 rows: the main path picks s from
@@ -277,8 +377,10 @@ extern "C" int cbird_band_counts(const void* sh, const void* srow,
 }
 
 // out[n_tot] += the credits of the dense tiles tiles[n_pairs][2] (device,
-// int32 (ta, tb)); the caller checks 0 <= ta, ta + 2 <= tb, (tb + 1) * s
-// <= n_tot - s.
+// int32 (ta, tb); a pair with ta < 0, tb < ta + 2 or (tb + 1) * s > n_tot - s
+// is skipped).  A block a unit, the columns cut into slices of at least
+// RUN_MIN_COLS for about UNITS_PER_BLOCK units a block of the blocks the
+// SMs hold at once.
 extern "C" int cbird_run_tiles(const void* sh, const void* srow,
                                const void* svalid, int n_tot, int s,
                                const unsigned long long* masks, int n_masks,
@@ -286,13 +388,36 @@ extern "C" int cbird_run_tiles(const void* sh, const void* srow,
                                void* out, void* stream) {
   if (n_pairs == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(n_pairs, (s + ROWS - 1) / ROWS,
-                  (s + RUN_COLS - 1) / RUN_COLS);
-  run_kernel<<<grid, THREADS, 0, st>>>(
+  const RunKernel kern = run_kernel_for(n_masks);
+  if (!kern) return (int)cudaErrorInvalidValue;
+  // blocks the SMs hold at once, by n_masks (one device a process on the
+  // main path; a second card has as many SMs)
+  static int caps[MAX_MASKS + 1] = {};
+  int& cap = caps[n_masks];
+  if (!cap) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kern, RUN_THREADS, 0);
+    if (err != cudaSuccess) return (int)err;
+    cap = sms * per_sm;
+  }
+  const int rs = (s + RUN_ROWS - 1) / RUN_ROWS;
+  const long long base = (long long)n_pairs * rs;
+  const long long want = (UNITS_PER_BLOCK * (long long)cap + base - 1) / base;
+  const int max_cs = (s + RUN_MIN_COLS - 1) / RUN_MIN_COLS;
+  const int cs0 = (int)(want < 1 ? 1 : want > max_cs ? max_cs : want);
+  const int width = ((s + cs0 - 1) / cs0 + 31) / 32 * 32;
+  const int cs = (s + width - 1) / width;
+  const long long units = base * cs;
+  kern<<<(int)units, RUN_THREADS, 0, st>>>(
       static_cast<const unsigned long long*>(sh),
-      static_cast<const int*>(srow), static_cast<const bool*>(svalid), s,
-      pack(masks, n_masks), t, static_cast<const int*>(tiles),
-      static_cast<int*>(out));
+      static_cast<const int*>(srow), static_cast<const bool*>(svalid), n_tot,
+      s, pack(masks, n_masks), t, static_cast<const int*>(tiles), rs, cs,
+      width, static_cast<int*>(out));
   return (int)cudaGetLastError();
 }
 

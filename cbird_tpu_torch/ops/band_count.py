@@ -2,11 +2,13 @@
 
 ``band_counts`` replaces ``cbird_tpu/ops/pallas_band.py`` ``band_counts``
 and ``cbird_tpu/ops/pigeonhole.py`` ``_band_chunk``; ``run_tiles``
-replaces ``_run_tile`` (one launch for a block's whole tile list instead
-of one dispatch per tile pair).  The kernel is ``csrc/band_count.cu``; its
-header states the contract, what bounds it on an H100 and how the band
-walks only each row's own equal-key run (it finds the run edges itself,
-so the operands are the sorted block's three arrays).
+replaces ``_run_tile`` / ``_run_contribs`` (one launch for a block's whole
+tile list instead of one dispatch per tile pair; the list lies on the
+card, ``ops/pigeonhole.py`` ``run_tile_pairs``).  The kernel is
+``csrc/band_count.cu``; its header states the contract, what bounds it on
+an H100, how the band walks only each row's own equal-key run (it finds
+the run edges itself, so the operands are the sorted block's three
+arrays) and how the run tiles sum a hit-dense tile's credits.
 
 Operands: one block's sorted order, ``sh`` [n_pad + s] int64 hashes,
 ``srow`` [n_pad + s] int32 original store rows, ``svalid`` [n_pad + s]
@@ -59,7 +61,9 @@ def check_operands(sh: torch.Tensor, srow: torch.Tensor,
 
 
 def check_tiles(tiles: np.ndarray, n_tot: int, s: int) -> None:
-    """Run tiles: [P, 2] (ta, tb) with tb >= ta + 2, inside the order."""
+    """Run tiles given on the host: [P, 2] (ta, tb) with tb >= ta + 2,
+    inside the order.  (A list on the card is not read back: the kernel
+    skips a pair outside the order.)"""
     if tiles.ndim != 2 or tiles.shape[1] != 2:
         raise ValueError(f"tiles must be [P, 2], got {tiles.shape}")
     tiles = tiles.astype(np.int64)
@@ -116,12 +120,15 @@ def band_counts_plain(sh: torch.Tensor, srow: torch.Tensor,
 
 def run_tiles_plain(csort: torch.Tensor, sh: torch.Tensor,
                     srow: torch.Tensor, svalid: torch.Tensor,
-                    tiles: np.ndarray, masks: Sequence[int], t: int,
+                    tiles, masks: Sequence[int], t: int,
                     s: int) -> torch.Tensor:
     """Plain PyTorch version of the run tiles: adds into ``csort``.
+    @param tiles [P, 2] (ta, tb): a host array or a tensor
     @return csort"""
     dev = sh.device
     span = torch.arange(s, device=dev)
+    if isinstance(tiles, torch.Tensor):
+        tiles = tiles.cpu().numpy()
     for ta, tb in np.asarray(tiles).reshape(-1, 2):
         q = (int(tb) * s + span)[None, :].expand(s, s)
         _credit(csort, sh, srow, svalid, int(ta) * s + span, q, masks, t,
@@ -133,6 +140,9 @@ _BAND_FN = "cbird_band_counts"
 _RUN_FN = "cbird_run_tiles"
 _COMMON = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
            ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+# cbird_run_tiles: _COMMON, tiles, n_pairs, out, stream
+_RUN_ARGS = _COMMON + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p]
 
 
 def _load(fn: str, argtypes: list):
@@ -177,34 +187,52 @@ def band_counts(sh: torch.Tensor, srow: torch.Tensor, svalid: torch.Tensor,
 band_counts.launches = 0
 
 
+def device_tiles(tiles, dev: torch.device, n_tot: int,
+                 s: int) -> torch.Tensor:
+    """The tile list as K3-run reads it: a contiguous [P, 2] int32 tensor
+    on ``dev``.  A host list is checked (``check_tiles``) and copied; a
+    tensor on ``dev`` is used as it is."""
+    if isinstance(tiles, torch.Tensor):
+        if tiles.device != dev:
+            raise ValueError("operands on different devices: the tile list "
+                             f"on {tiles.device}, the order on {dev}")
+        if tiles.dtype != torch.int32 or tiles.dim() != 2 \
+                or tiles.shape[1] != 2:
+            raise ValueError(f"tiles must be [P, 2] int32, got "
+                             f"{tuple(tiles.shape)} {tiles.dtype}")
+        return tiles.contiguous()
+    tiles = np.asarray(tiles, dtype=np.int32).reshape(-1, 2)
+    check_tiles(tiles, n_tot, s)
+    return torch.from_numpy(tiles).to(dev)
+
+
 def run_tiles(csort: torch.Tensor, sh: torch.Tensor, srow: torch.Tensor,
               svalid: torch.Tensor, tiles, masks: Sequence[int], t: int,
               s: int) -> torch.Tensor:
     """Add the dense [s, s] tiles (ta, tb) of over-long equal-key runs into
     ``csort``, all in one launch.
-    @param tiles [P, 2] host array of tile pairs, tb >= ta + 2
+    @param tiles [P, 2] (ta, tb), tb >= ta + 2: an int32 tensor on the
+           operands' device (``ops/pigeonhole.py`` ``run_tile_pairs``: no
+           copy), or a host array (checked, then copied)
     @return csort"""
-    tiles = np.asarray(tiles, dtype=np.int32).reshape(-1, 2)
     dev = one_device("run_tiles", csort, sh, srow, svalid)
     if dev.type == "cpu":
         return run_tiles_plain(csort, sh, srow, svalid, tiles, masks, t, s)
-    lib = _load(_RUN_FN, _COMMON + [ctypes.c_void_p, ctypes.c_int,
-                                    ctypes.c_void_p, ctypes.c_void_p])
+    lib = _load(_RUN_FN, _RUN_ARGS)
     check_operands(sh, srow, svalid, masks, s)
     _require_cuda(sh, "run_tiles")
-    check_tiles(tiles, sh.numel(), s)
     if (csort.dtype != torch.int32 or csort.shape != sh.shape
             or csort.device != sh.device or not csort.is_contiguous()):
         raise ValueError("csort must be a contiguous int32 vector like sh")
+    tiles = device_tiles(tiles, dev, sh.numel(), s)
     if not len(tiles):
         return csort
-    tiles_dev = torch.from_numpy(tiles).to(dev)
     marr = _mask_array(masks)
     with launch_on(dev):
         err = getattr(lib, _RUN_FN)(
             sh.data_ptr(), srow.data_ptr(), svalid.data_ptr(), sh.numel(),
             int(s), ctypes.addressof(marr), len(masks), int(t),
-            tiles_dev.data_ptr(), len(tiles), csort.data_ptr(),
+            tiles.data_ptr(), len(tiles), csort.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "run_tiles")
     run_tiles.launches += 1

@@ -26,13 +26,30 @@ kernel.  Where the JAX package relies on XLA's semantics the port says so
 explicitly: the per-level top-k breaks ties by the lower flat index (a
 stable sort; ``torch.topk`` promises no tie order on CUDA), and gather
 indices are clamped to the padded level as XLA clamps them (a CUDA gather
-out of range is a device assert).  Every matmul runs in full float32
-(``device.set_hash_numerics``).
+out of range is a device assert).
+
+The same image gives the same features on a card, on the CPU and in any
+batch: no step sums in float32 in an order a library picks (cuBLAS picks
+its algorithm by shape and batch) or calls a float32 libm.  Each step is
+elementwise in a fixed sequence of float32 ops, or rounds a float64
+result once to float32, where a float32 product is exact, so that it
+rounds alike everywhere but on a rounding edge (odds near 2^-29 a
+value):
+- the multiply-adds (``_fma``) and the resize's two products, a
+  multiply-add chain in ascending k over each output's band of weights
+  (``_band_product``): the order XLA's CPU dot sums them in, so the
+  levels stay within the JAX package's float noise where a float64 sum
+  rounded once would not (flat regions, where the noise decides ties);
+- the ROI hashes' matmuls and threshold sum, the intensity centroid's
+  sums and ``atan2``, and the descriptor's ``cos`` and ``sin``: in
+  float64, rounded once.
+No matmul runs in TF32 (``device.set_hash_numerics``).
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import functools
 import math
 import os
 from typing import Sequence
@@ -99,10 +116,68 @@ def _level_dims(levels: int = N_LEVELS) -> list[tuple[int, int]]:
     return dims
 
 
+@functools.lru_cache(maxsize=None)
+def _band_steps(out_n: int, n_in: int = CANVAS) -> int:
+    """The most input rows (or columns) that one output cell of the level
+    ``out_n`` area resize weighs, over every content size 1..n_in: the
+    steps of ``_band_product`` (``_resize_area``'s float32 arithmetic)."""
+    ratio = out_n / CANVAS
+    size = torch.arange(1, n_in + 1, dtype=torch.float32)[:, None]
+    lsize = torch.clamp((size * ratio).to(torch.int32), min=1).float()
+    s = size / lsize
+    i = torch.arange(out_n, dtype=torch.float32)[None, :]
+    span = torch.minimum(torch.ceil((i + 1.0) * s), size) - torch.floor(i * s)
+    return int((span * (i < lsize)).max())
+
+
+def _band_product(w: torch.Tensor, first: torch.Tensor, x: torch.Tensor,
+                  steps: int) -> torch.Tensor:
+    """w [B, n, K] @ x [B, K, M] for a banded w (row i's nonzero weights
+    among columns first[:, i] .. + steps - 1), as XLA's CPU dot sums it: a
+    float32 multiply-add chain in ascending k, each step rounded once (the
+    product is exact in float64).  A weight of 0 leaves the sum as it is,
+    so the chain equals the whole dot's.  Elementwise, so it rounds alike
+    on any device and in any batch.
+    @return [B, n, M] float32"""
+    b, _, k = w.shape
+    idx = first[..., None] + torch.arange(steps, device=w.device)
+    wt = torch.gather(w, 2, idx.clamp(max=k - 1)) * (idx < k)
+    wt, idx = wt.double(), idx.clamp(max=k - 1)
+    x = x.double()
+    bi = torch.arange(b, device=w.device)[:, None]
+    acc = torch.zeros(b, w.shape[1], x.shape[2], device=w.device)
+    lo = torch.zeros_like(acc)  # the sum of the first half of k, if split
+    for t in range(steps):
+        if t:  # a band across k's halves: its second sum starts from 0
+            cut = (idx[..., t] == k // 2)[..., None]
+            lo = torch.where(cut, acc, lo)
+            acc = torch.where(cut, 0.0, acc)
+        acc = torch.addcmul(acc.double(), wt[..., t, None],
+                            x[bi, idx[..., t]]).float()
+    return lo + acc
+
+
+def _dot_chain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [..., M, K] @ b [..., K, N] as a float32 multiply-add chain in
+    ascending k, each step rounded once (``_band_product``'s sum without
+    the band): elementwise, so it rounds alike on any device and in any
+    batch.
+    @return float32"""
+    a, b = a.double(), b.double()
+    acc = torch.zeros(torch.broadcast_shapes(a.shape[:-1] + (1,),
+                                             b.shape[:-2] + (1, b.shape[-1])),
+                      device=a.device)
+    for k in range(a.shape[-1]):
+        acc = torch.addcmul(acc.double(), a[..., :, k, None],
+                            b[..., k, None, :]).float()
+    return acc
+
+
 def _resize_area(img: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
                  out_n: int):
     """Area-resize the (h, w) region of each square canvas [B, N, N] by
-    out_n / 400 into [B, out_n, out_n].
+    out_n / 400 into [B, out_n, out_n]: (wy @ img) @ wx.T, each product a
+    ``_band_product``.
     @return (level images, level h [B], level w [B])"""
     n_in = img.shape[-1]
     dev = img.device
@@ -115,16 +190,20 @@ def _resize_area(img: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
     out_idx = torch.arange(out_n, device=dev)[None, :, None]
 
     def weights(size, lsize):
+        """[B, out_n, n_in] weights and each row's first weighed column"""
         s = (size.float() / lsize.float())[:, None, None]
         lo = torch.maximum(i * s, y)
         hi = torch.minimum((i + 1.0) * s, y + 1.0)
         wgt = torch.clamp(hi - lo, min=0.0) / s
+        first = torch.floor(i * s)[..., 0].to(torch.int64)
         return (wgt * (in_idx < size[:, None, None])
-                * (out_idx < lsize[:, None, None]))
+                * (out_idx < lsize[:, None, None])), first
 
-    wy, wx = weights(h, lh), weights(w, lw)
-    out = torch.bmm(torch.bmm(wy, img), wx.transpose(1, 2))
-    return out, lh, lw
+    steps = _band_steps(out_n, n_in)
+    (wy, fy), (wx, fx) = weights(h, lh), weights(w, lw)
+    rows = _band_product(wy, fy, img, steps)  # [B, out_n, N]
+    out = _band_product(wx, fx, rows.transpose(1, 2), steps)
+    return out.transpose(1, 2).contiguous(), lh, lw
 
 
 def _box_blur(img: torch.Tensor, r: int = 2) -> torch.Tensor:
@@ -230,16 +309,18 @@ def _detect_level(img: torch.Tensor, lh: torch.Tensor, lw: torch.Tensor,
 
 
 def _orientation(patches: torch.Tensor) -> torch.Tensor:
-    """Intensity-centroid angle of [..., 31, 31] patches -> [...] radians."""
+    """Intensity-centroid angle of [..., 31, 31] patches -> [...] radians:
+    the moments summed in float64 and rounded to float32 (as the JAX
+    package keeps them), their ``atan2`` in float64, rounded once."""
     r = PATCH // 2
     dev = patches.device
-    yy = torch.arange(-r, r + 1, dtype=torch.float32, device=dev)[:, None]
-    xx = torch.arange(-r, r + 1, dtype=torch.float32, device=dev)[None, :]
+    yy = torch.arange(-r, r + 1, dtype=torch.float64, device=dev)[:, None]
+    xx = torch.arange(-r, r + 1, dtype=torch.float64, device=dev)[None, :]
     circ = (yy * yy + xx * xx) <= r * r
-    w = patches * circ
-    m01 = (w * yy).sum(dim=(-2, -1))
-    m10 = (w * xx).sum(dim=(-2, -1))
-    return torch.atan2(m01, m10)
+    w = patches.double() * circ
+    m01 = (w * yy).sum(dim=(-2, -1)).float()
+    m10 = (w * xx).sum(dim=(-2, -1)).float()
+    return torch.atan2(m01.double(), m10.double()).float()
 
 
 def _gather_patches(pad: torch.Tensor, ys: torch.Tensor,
@@ -271,7 +352,9 @@ def _descriptors(blurred_pad: torch.Tensor, ys: torch.Tensor,
     blurred level [B, n + 62, n + 62] -> [B, k, 4] int64."""
     dev = blurred_pad.device
     pat = torch.as_tensor(_PATTERN, device=dev)  # [256, 4]
-    ca, sa = torch.cos(angles)[..., None], torch.sin(angles)[..., None]
+    a64 = angles.double()
+    ca = torch.cos(a64).float()[..., None]
+    sa = torch.sin(a64).float()[..., None]
     lim = blurred_pad.shape[-1] - 1
     bi = torch.arange(blurred_pad.shape[0], device=dev)[:, None, None]
 
@@ -375,12 +458,17 @@ def roi_hashes(canvas: torch.Tensor, boxes: torch.Tensor,
     rblur = _blur_radius(hh * ww)
     mh = _axis_map(top, hh, rblur, 32, hc)  # [B * kmax, 32, H]
     mw = _axis_map(left, ww, rblur, 32, wc)  # [B * kmax, 32, W]
-    g = torch.bmm(mh.reshape(b, kmax * 32, hc), canvas)  # [B, kmax*32, W]
-    g = torch.bmm(g.reshape(b * kmax, 32, wc), mw.transpose(1, 2))
+    # the blur-and-resize products in float64, each rounded once; the DCT
+    # as float32 multiply-add chains (``_dot_chain``): a flat ROI's
+    # coefficients are then float32 noise, as in the JAX package, and not
+    # the exact ones, which would hash every flat ROI of a size alike
+    g = torch.bmm(mh.double().reshape(b, kmax * 32, hc), canvas.double())
+    g = torch.bmm(g.float().double().reshape(b * kmax, 32, wc),
+                  mw.double().transpose(1, 2)).float()
     d = torch.as_tensor(_D32, device=dev)
-    freq = d @ g @ d.T
+    freq = _dot_chain(_dot_chain(d, g), d.T)
     v = freq[:, :9, :9].reshape(-1, 81)[:, torch.as_tensor(_ZZ64, device=dev)]
-    thresh = v.sum(dim=1, keepdim=True) / 64.0
+    thresh = v.double().sum(dim=1, keepdim=True).float() / 64.0
     bits = v > thresh
     bits[:, 0] = False  # ones-place reserved for the null convention
     hv = (bits.long() * torch.as_tensor(_BITS, device=dev)).sum(dim=1)

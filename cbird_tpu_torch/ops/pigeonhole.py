@@ -14,7 +14,9 @@ Coverage: a pair with position gap <= s lies in the same or adjacent
 tiles, which the band scans.  Pairs of an equal-key run longer than s + 1
 that span two or more tile boundaries are covered by the dense tile pairs
 (tb >= ta + 2) enumerated from the run's tile span; band and run tiles are
-disjoint by tile arithmetic and the tile set is deduplicated across runs.
+disjoint by tile arithmetic, and no tile pair comes from two runs.  The
+tile list is built on the store's device (``run_tile_pairs``); its length
+is the one value a block reads back for it (the run budget's check).
 
 Kernel K3 (``ops/band_count.py``, ``csrc/band_count.cu``) does the band
 and the run tiles of a block; everything else here is PyTorch.  Its band
@@ -127,31 +129,51 @@ def pad_block(hashes: torch.Tensor, valid: torch.Tensor, srow: torch.Tensor,
             torch.cat([valid[srow], pad.bool()]))
 
 
-def run_tile_pairs(key_s: torch.Tensor, change: torch.Tensor, s: int):
+def run_tile_pairs(key_s: torch.Tensor, change: torch.Tensor, s: int,
+                   limit: int | None = None):
     """Dense tile pairs for the equal-key runs longer than s + 1 among the
     sorted valid keys ``key_s`` (``change`` marks each run's first
-    position): a run starting at i is that long iff the key is unchanged
-    at i + s, and its last position j has key[j] == key[j - s].
-    @return sorted list of (ta, tb), tb >= ta + 2"""
+    position), built on their device: a run over tiles t0..t1 takes every
+    (ta, tb) with t0 <= ta, ta + 2 <= tb <= t1, (t1 - t0 - 1)(t1 - t0) / 2
+    pairs (none unless it spans three tiles, so only runs longer than
+    s + 1 have any); runs are disjoint ranges of the order, so no pair
+    comes from two runs.  The pair count is the one value read back.
+    @param limit return None when there are more pairs than this
+    @return [P, 2] int32 (ta, tb) on key_s's device, in (ta, tb) order, or
+            None past ``limit``"""
     m = key_s.numel()
+    dev = key_s.device
+    none = torch.zeros((0, 2), dtype=torch.int32, device=dev)
     if m <= s:
-        return []
-    same = key_s[:-s] == key_s[s:]
-    os_start = change[:-s] & same
-    change_next = torch.ones_like(change)
-    change_next[:-1] = change[1:]
-    os_end = change_next[s:] & same  # position i + s ends a run
-    starts = torch.nonzero(os_start).flatten().cpu().numpy()
-    if not len(starts):
-        return []
-    ends = torch.nonzero(os_end).flatten().cpu().numpy() + s
-    tile_pairs: set[tuple[int, int]] = set()
-    for st, en in zip(starts, ends):  # the run occupies [st, en]
-        t0, t1 = int(st) // s, int(en) // s
-        for ta in range(t0, t1 - 1):
-            for tb in range(ta + 2, t1 + 1):
-                tile_pairs.add((ta, tb))
-    return sorted(tile_pairs)
+        return none
+    pos = torch.arange(m, device=dev)
+    last = torch.ones_like(change)
+    last[:-1] = change[1:]
+    # each position's run end: the first run end at or after it
+    end = torch.flip(torch.cummin(torch.flip(
+        torch.where(last, pos, m), [0]), 0).values, [0])
+    t0 = pos // s
+    span = end // s - t0  # the run's tiles, less one, at its start
+    cnt = torch.where(change, span * (span - 1) // 2, 0)
+    offs = torch.cumsum(cnt, 0)
+    total = int(offs[-1])  # the block's one read
+    if limit is not None and total > limit:
+        return None
+    if not total:
+        return none
+    # pair g: its run's start i and, counted back from the run's last pair,
+    # kr; the run's n ta's from the last one, a', hold the pairs
+    # [a'(a'+1)/2, (a'+1)(a'+2)/2) of that count
+    g = torch.arange(total, device=dev)
+    i = torch.searchsorted(offs, g, right=True)
+    n = span[i] - 1
+    kr = offs[i] - 1 - g
+    ar = ((torch.sqrt((8 * kr + 1).double()) - 1) // 2).long()
+    ar = ar + ((ar + 1) * (ar + 2) // 2 <= kr).long()
+    ar = ar - (ar * (ar + 1) // 2 > kr).long()
+    ta = t0[i] + n - 1 - ar
+    tb = t0[i] + n + 1 - (kr - ar * (ar + 1) // 2)
+    return torch.stack([ta, tb], dim=1).int()
 
 
 def _sharded_block(mesh, sh: torch.Tensor, srow: torch.Tensor,
@@ -170,7 +192,7 @@ def _sharded_block(mesh, sh: torch.Tensor, srow: torch.Tensor,
     spans = {c: (c * per * s, min(tiles, (c + 1) * per) * s)
              for c in range(devs) if c * per < tiles}
     state = shd.ph_band_step_fn(mesh, masks, s, t)(state, spans, *reps)
-    if tile_pairs:
+    if len(tile_pairs):
         state = shd.ph_run_step_fn(mesh, masks, s, t)(
             state, {c: tile_pairs[c::devs] for c in range(devs)}, *reps)
     return shd.ph_reduce_fn(mesh)(state)
@@ -215,10 +237,10 @@ def _count_device(hashes: torch.Tensor, valid: torch.Tensor, threshold: int,
             n_valid / max(1.0, float(change.sum())), n_pad)
         if not sb:
             return None  # measured runs too long: classic wins
-        tile_pairs = run_tile_pairs(key_s, change, sb)
-        if (len(tile_pairs) > RUN_BUDGET_TILES
-                or len(tile_pairs) * sb * sb
-                > RUN_BUDGET_FRAC * n_valid * n_valid / 2):
+        tile_pairs = run_tile_pairs(key_s, change, sb, limit=min(
+            RUN_BUDGET_TILES,
+            int(RUN_BUDGET_FRAC * n_valid * n_valid / 2 / (sb * sb))))
+        if tile_pairs is None:
             return None  # degenerate key skew: classic path wins
         if stats is not None:
             stats["s"].append(sb)
@@ -230,7 +252,7 @@ def _count_device(hashes: torch.Tensor, valid: torch.Tensor, threshold: int,
                                    block, n_pad, sb, threshold)
         else:
             csort = band_counts(sh, srow32, svalid, block, threshold, sb)
-            if tile_pairs:
+            if len(tile_pairs):
                 run_tiles(csort, sh, srow32, svalid, tile_pairs, block,
                           threshold, sb)
         counts.index_add_(0, srow, csort[:n_pad])  # srow: a permutation

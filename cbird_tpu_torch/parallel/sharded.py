@@ -594,14 +594,18 @@ def ph_run_step_fn(mesh: Mesh, masks, s: int, t: int):
     """The sharded oversized-run step: every device runs K3-run over its
     own list of dense [s, s] tiles.
     @return step(state, tiles, sh, srow, svalid): ``tiles`` maps a flat
-            device index to its (ta, tb) list"""
+            device index to its (ta, tb) list (a [P, 2] int32 tensor,
+            copied to the device where it lies elsewhere, or a host list)"""
     from ..ops.band_count import run_tiles
 
     def step(state, tiles, sh, srow, svalid):
         for c, dev in mesh.local_devices():
-            if len(tiles.get(c, ())):
+            mine = tiles.get(c, ())
+            if len(mine):
+                if isinstance(mine, torch.Tensor):
+                    mine = mine.to(dev).contiguous()
                 run_tiles(state[c], sh.on(dev), srow.on(dev), svalid.on(dev),
-                          tiles[c], masks, t, s)
+                          mine, masks, t, s)
         return state
     return step
 

@@ -20,6 +20,10 @@ Phases, each printed on its own line (pass/fail, numbers, wall ms, card):
            edge, past and below the tile, 64-bit bases, a ragged needle
            batch), timed beside the popcount K2; both also at the wgmma
            kernel's tile edges (EDGE_Q, EDGE_N, EDGE_D, every t of K2_T);
+           K3-run (the run tiles) also at the cluster shape (the ~465 run
+           tiles of a 65,536-row near-duplicate cluster, checked against
+           its plain twin), both of its shapes timed as the wrapper back to
+           back, the bare kernel's device time and the wrapper's host time;
            the top-k (K4) also timed at the query phase's and video (a)'s
            shapes (the wrapper, and its scan kernel alone), with the
            needles that took its second pass at each checked (k, bound)
@@ -31,11 +35,17 @@ Phases, each printed on its own line (pass/fail, numbers, wall ms, card):
            the classic triangle (CBIRD_PIGEONHOLE=off), then through the
            pigeonhole count phase; equal results, both walls
   ph       2M- and 10M-row stores built the same way, the 10M one plus a
-           5000-row cluster that shares one block's key: search_self(5,
-           k=64) through the pigeonhole count phase (K3); then, as checks,
-           its counts against the classic triangle's on every row at 2M
+           5000-row cluster that shares one block's key, then the 2M one
+           plus a 65,536-row near-duplicate cluster (every member within 2
+           bits of one centre: hit-dense run tiles in every block):
+           search_self(5, k=64) through the pigeonhole count phase (K3,
+           K3-run; launches printed; the cluster's store through that
+           count phase alone: search_self would list its 2^32 pairs, which
+           takes minutes); then, as checks, its counts against
+           the classic triangle's on every row at 2M and 2M + the cluster
            and against K2 on sampled rows at 10M (every row with
-           --triangle-all)
+           --triangle-all); K3 on the 10M store's block 0 timed and held
+           against its bound
   video    4096 videos x 512 retained frames (2^21 frame rows) built with
            add_video: 64 planted copies, 1% of the videos removed, then a
            black frame in 2000 of them: (a) -similar over every video (the
@@ -55,10 +65,12 @@ Phases, each printed on its own line (pass/fail, numbers, wall ms, card):
            descriptors and keypoint hashes) over 1024 seeded textured
            images with long sides of 300-1200 px: images/s, and the device
            time of the pyramid and the ROI hashes beside the host's
-           prescale and pack; 8 of them also through the CPU path:
-           keypoint agreement (>= 99%), descriptor bits differing, ROI
-           hashes differing (<= 1 bit; ROIs in flat regions, whose hash is
-           float noise on any device, counted apart)
+           prescale and pack; 64 of them also through the CPU path (in
+           chunks of 16): every ORB output equal (keypoints, 100%;
+           descriptor bits differing, 0) and the ROI hashes equal but for
+           flat ROIs (float noise on any device, counted apart); 8 of them
+           one at a time on the card: the same features, bit for bit, as
+           in the chunk of 64
   fdct     a DctFeaturesIndex of 2^22 keypoint-hash rows (10486 images x
            400) with 64 planted crop groups: -similar (find_all, t=5,
            through the pigeonhole path, K3 and K4) finds them; -similar-to
@@ -100,9 +112,8 @@ Phases, each printed on its own line (pass/fail, numbers, wall ms, card):
            its cause and its scores both ways against a CPU matcher of
            the port; the matcher's descriptors on CUDA; K5's mutual match
            against numpy on 64 sampled pairs; 16 groups' pairs scored on
-           the card and the CPU (a differing score must come with
-           differing ORB features); pairs verified/s, the wall and ORB's
-           share
+           the card and the CPU, every score equal; pairs verified/s, the
+           wall and ORB's share
   serve    QueryServer over tm's index on 127.0.0.1:0 in a background
            thread (warm-up timed: every kernel built and loaded, the dct
            store on the card): ping, status, 64 queries (dct and fdct, 8
@@ -141,7 +152,7 @@ the colors alone at a small shape; and the color top-k of 8 needles over a
 its best score across a chunk edge and the k boundary; and in warps
 whose rows' counts straddle the needles'.  It times K6's one-sided forms
 ("ab", "ba") at color -similar's launch, 1024 needles x K6_WINDOW rows,
-each checked on its first K6_WINDOW_CHECKED needles.  K6's bound counts
+each beside its plain twin, whose scores of every needle it matches.  K6's bound counts
 the FP32 instructions the data needs (3 subtracts, a multiply, 2 FMAs and
 a min a color pair of each scored pair, over the side it takes; a sqrt, a
 compare and an add a color of that side) at FP32_PER_CLK a clock per SM,
@@ -239,11 +250,23 @@ NEEDLE_TRIMMED, NEEDLE_SOURCES, NEEDLE_SEG, NEEDLE_BLACK = 16384, 24, 300, 16
 OFF_PATH = ("K1-mma-bf16", "K1", "K2", "K5-popc")
 # sizes: K3's checks (sorted block rows, tile size s, thresholds; the
 # first is timed; s=1024 and 4096 are the other sizes the main path
-# picks), the self phase's store, the ph phase's stores (the first is
+# picks; the largest threshold, pigeonhole.MAX_THRESHOLD, runs K3-run at
+# every mask count, its data with K3_FAR pairs a block first equal there,
+# k3_far_pairs), the self phase's store, the ph phase's stores (the first is
 # checked on every row against the triangle, ~N^2 / 3.8e12 s; the second
 # on PH_SAMPLE blocks of 64 rows)
+T_MAX = 8
 K3_CHECKS = ((1 << 20, 2048, (T, 1)), (1 << 20, 1024, (T,)),
-             (1 << 21, 4096, (T,)))
+             (1 << 21, 4096, (T,)), (1 << 20, 2048, (T_MAX,)))
+K3_FAR = 4096
+# K3-run's cluster shape: a near-duplicate cluster of K3_CLUSTER rows (every
+# member within 2 bits of one centre) in a block of K3_CHECKS[0]'s rows, at
+# its s: in block 0 of t=5 one equal-key run, ~465 hit-dense run tiles;
+# the ph phase's store of PH_ROWS[0] rows holds one as well (its count
+# phase), and one of PH_CLUSTER_SELF rows through search_self (the
+# K3_CLUSTER one lists 2^32 pairs: minutes of top-k)
+K3_CLUSTER = 65536
+PH_CLUSTER_SELF = 8192
 SELF_ROWS = 1_000_000
 PH_ROWS = (2_000_000, 10_000_000)
 PH_SAMPLE = 128
@@ -251,9 +274,10 @@ PH_SAMPLE = 128
 # levels, 256-bit descriptors, 64-bit keypoint hashes): feat's images (8
 # of them also on the CPU); the fdct store (2^22 keypoint-hash rows) and
 # the orb store (2^20 descriptors), each with FEAT_GROUPS planted crop
-# groups and FEAT_NEEDLES needle images; orb -similar over the images of
+# groups and FEAT_NEEDLES needle images (FEAT_ALONE of feat's also one at a
+# time on the card); orb -similar over the images of
 # the first ORB_SIMILAR_ROWS rows; fcli's sources
-FEAT_IMAGES, FEAT_CPU, KP = 1024, 8, 400
+FEAT_IMAGES, FEAT_CPU, FEAT_ALONE, KP = 1024, 64, 8, 400
 FDCT_IMAGES, ORB_IMAGES = 10486, 2622
 FEAT_GROUPS, FEAT_NEEDLES = 64, 16
 ORB_SIMILAR_ROWS = 1 << 18
@@ -280,7 +304,6 @@ COLOR_ROWS, COLOR_SIMILAR_ROWS, COLOR_SCAN_ROWS = 1 << 20, 1 << 16, 1 << 14
 COLOR_GROUPS = 64
 K6_TIMED = (1024, 1 << 18)
 K6_WINDOW = 1 << 16
-K6_WINDOW_CHECKED = 128
 K6_Q = (1, 31, 32, 33, 64)
 K6_C = (1, 127, 128, 129, 4097)
 K6_TOPK_NEEDLES = 8
@@ -972,7 +995,8 @@ class Smoke:
         m = key_s.numel()
         if tiles is not None:
             pairs = cands = 0
-            for ta, tb in tiles:
+            for ta, tb in (tiles.tolist() if hasattr(tiles, "tolist")
+                           else tiles):
                 a, b = key_s[ta * s:(ta + 1) * s], key_s[tb * s:(tb + 1) * s]
                 pairs += a.numel() * b.numel()
                 cands += int((a[:, None] == b[None, :]).sum())
@@ -1009,10 +1033,85 @@ class Smoke:
         valid[-37:] = False
         return h64, valid
 
+    @staticmethod
+    def k3_far_pairs(h64: np.ndarray, t: int, rng, pairs: int = K3_FAR):
+        """For each block b >= 1 of threshold ``t``, ``pairs`` pairs of
+        rows a distance b apart, one bit in each earlier block: a pair
+        first equal in block b, so that it counts there.  One row of a pair
+        lies in the first half of the store, the other in the second (both
+        clear of k3_data's plants), so that the stable sort puts them far
+        apart in their run, in a run tile where the run spans three."""
+        from cbird_tpu_torch.ops import pigeonhole as ph
+        bits = [[i for i in range(64) if ph.mask64(m) % 2**64 >> i & 1]
+                for m in ph.block_masks(t)]
+        n = len(h64)
+        lo = rng.permutation(np.arange(n // 5, n // 2))
+        hi = rng.permutation(np.arange(n // 2 + n // 8, n - 64))
+        for b in range(1, t):
+            a = lo[(b - 1) * pairs:b * pairs]
+            c = hi[(b - 1) * pairs:b * pairs]
+            flip = np.zeros(pairs, dtype=np.uint64)
+            for e in range(b):
+                flip |= np.uint64(1) << rng.choice(bits[e], size=pairs) \
+                    .astype(np.uint64)
+            h64[c] = h64[a] ^ flip
+
+    @staticmethod
+    def k3_cluster(h64: np.ndarray, rows: np.ndarray, rng, outside: int = 0):
+        """A near-duplicate cluster: ``rows`` of ``h64`` become one centre
+        with 0-2 of its bits flipped (outside the bits of ``outside``, a
+        64-bit mask, so that they keep its key there)."""
+        free = [b for b in range(64) if not outside >> b & 1]
+        centre = h64[rows[0]]
+        flips = rng.integers(0, 3, size=len(rows))
+        for r, f in zip(rows, flips):
+            bits = rng.choice(free, size=int(f), replace=False)
+            h64[r] = centre ^ np.uint64(sum(1 << int(b) for b in bits))
+
+    def run_launch(self, csort, ops, tiles, masks, s: int):
+        """One bare ``cbird_run_tiles`` launch of K3-run (no wrapper), as a
+        callable: its device time is the kernel's own."""
+        import ctypes
+        from cbird_tpu_torch import _build
+        from cbird_tpu_torch.ops import band_count as bc
+        lib = bc._load(bc._RUN_FN, bc._RUN_ARGS)
+        marr = bc._mask_array(masks)
+        args = (*(a.data_ptr() for a in ops), ops[0].numel(), s,
+                ctypes.addressof(marr), len(masks), T, tiles.data_ptr(),
+                len(tiles), csort.data_ptr(),
+                self.torch.cuda.current_stream().cuda_stream)
+
+        def launch():
+            _build.check(lib, getattr(lib, bc._RUN_FN)(*args), "run_tiles")
+        launch.keep = marr
+        return launch
+
+    def queued_ms(self, fn, reps: int):
+        """(device ms, host ms) a call of ``fn``, ``reps`` calls queued
+        behind a spin of the card: the device time is the calls' own, with
+        no wait for the host, and the host time the wrapper's enqueue."""
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(40_000_000)  # ~20 ms at 2 GHz
+        t0 = time.perf_counter()
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        host = (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / reps, host
+
     def k3_kernels(self):
         """K3 (band and run tiles) against the plain versions on sorted
         blocks at every size of K3_CHECKS (``k3_data``), every block of each
-        threshold; times the first size's t=5 block 0."""
+        threshold; times the first size's t=5 block 0.  K3-run also at the
+        cluster shape (K3_CLUSTER), checked against its plain twin; both
+        of its shapes timed three ways: the wrapper back to back (ms), the
+        bare kernel's device time, the wrapper's host time a call."""
         torch = self.torch
         from cbird_tpu_torch.ops import band_count as bc
         from cbird_tpu_torch.ops import pigeonhole as ph
@@ -1020,7 +1119,12 @@ class Smoke:
         out, err = {}, {"K3": 0, "K3-run": 0}
         timed = None
         for n, s, ts in K3_CHECKS:
-            h64, valid = self.k3_data(n, s, rng)
+            if T_MAX in ts:  # its own draws: the later shapes stay as they were
+                far = np.random.default_rng(SEED + T_MAX)
+                h64, valid = self.k3_data(n, s, far)
+                self.k3_far_pairs(h64, T_MAX, far)
+            else:
+                h64, valid = self.k3_data(n, s, rng)
             for t in ts:
                 for b in range(t):
                     ops, masks, key_s = self.k3_block(h64, valid, t, b, s)
@@ -1029,15 +1133,17 @@ class Smoke:
                     torch.cuda.synchronize()
                     if not torch.equal(got, want):
                         raise AssertionError(f"K3 band s={s} t={t} block {b}")
-                    change = torch.ones_like(key_s, dtype=torch.bool)
-                    change[1:] = key_s[1:] != key_s[:-1]
-                    tiles = ph.run_tile_pairs(key_s, change, s)
+                    tiles = ph.run_tile_pairs(key_s, self.changes(key_s), s)
+                    band = int(want.sum())
                     bc.run_tiles(got, *ops, tiles, masks, t, s)
                     bc.run_tiles_plain(want, *ops, tiles, masks, t, s)
                     torch.cuda.synchronize()
                     if not torch.equal(got, want):
                         raise AssertionError(f"K3 run tiles s={s} t={t} "
                                              f"block {b}")
+                    if t == T_MAX and int(want.sum()) == band:
+                        raise AssertionError(f"K3 run tiles t={t} block {b}: "
+                                             f"no credit to check")
                     out[f"s{s}_t{t}_b{b}"] = {"credits": int(want.sum()),
                                               "run_tiles": len(tiles)}
                     if timed is None:
@@ -1049,13 +1155,45 @@ class Smoke:
         csort = torch.zeros_like(ops[1])
         n_tot = ops[0].numel()
         pairs, cands = self.k3_work(key_s, s)
-        rpairs, rcands = self.k3_work(key_s, s, tiles)
+        # the cluster shape: K3_CLUSTER rows of a K3_CHECKS[0]-size block in
+        # one run of block 0, its run tiles against the plain twin
+        h64, valid = self.k3_data(n, s, rng)
+        m0 = ph.mask64(ph.block_masks(T)[0]) % 2**64
+        self.k3_cluster(h64, np.arange(n // 4, n // 4 + K3_CLUSTER), rng,
+                        outside=m0)
+        c_ops, _, c_key = self.k3_block(h64, valid, T, 0, s)
+        c_tiles = ph.run_tile_pairs(c_key, self.changes(c_key), s)
+        got = bc.run_tiles(torch.zeros_like(c_ops[1]), *c_ops, c_tiles,
+                           masks, T, s)
+        want = bc.run_tiles_plain(torch.zeros_like(c_ops[1]), *c_ops,
+                                  c_tiles, masks, T, s)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError("K3 run tiles differ at the cluster shape")
+        c_csort = torch.zeros_like(c_ops[1])
+        shapes = {"": (ops, tiles, csort), "cluster_": (c_ops, c_tiles,
+                                                         c_csort)}
         # bounds: 17 bytes a row (hash, row, valid, credit); the data needs
         # a pair tested only where the block keys are equal (the run edges
         # of a sorted block cost ~4 INT32 a row to find): 2 POPC and ~4
         # INT32 (two xors, the add, the compare; all but the add on the
-        # ALU pipe) per equal-key pair
-        run_rows = 2 * s * len(tiles)
+        # ALU pipe) per equal-key pair; and a run tile's credit, one add
+        # (INT32) a counted pair: a hit-dense tile's pairs all count
+        run_work = {}
+        for tag, (o, tl, _) in shapes.items():
+            k_s = key_s if not tag else c_key
+            rpairs, rcands = self.k3_work(k_s, s, tl)
+            hits = int(bc.run_tiles_plain(torch.zeros_like(o[1]), *o, tl,
+                                          masks, T, s).sum()) if not tag \
+                else int(want.sum())
+            run_rows = 2 * s * len(tl)
+            run_work[tag] = dict(nbytes=17 * run_rows, popc=2 * rcands,
+                                 alu=3 * rcands + 4 * run_rows,
+                                 int_ops=4 * rcands + 4 * run_rows + hits)
+            out[f"K3-run_{tag}pairs"] = rpairs
+            out[f"K3-run_{tag}candidates"] = rcands
+            out[f"K3-run_{tag}hits"] = hits
+            out[f"K3-run_{tag}tiles"] = len(tl)
         self.sm_clock()
         timings = {
             "K3": (lambda: bc.band_counts(*ops, masks, T, s),
@@ -1066,9 +1204,7 @@ class Smoke:
             "K3-run": (lambda: bc.run_tiles(csort, *ops, tiles, masks, T, s),
                        lambda: bc.run_tiles_plain(csort, *ops, tiles, masks,
                                                   T, s),
-                       dict(nbytes=17 * run_rows, popc=2 * rcands,
-                            alu=3 * rcands + 4 * run_rows,
-                            int_ops=4 * rcands + 4 * run_rows)),
+                       run_work[""]),
         }
         for name, (kern, plain, work) in timings.items():
             ms = self.event_ms(kern, 20)
@@ -1080,16 +1216,41 @@ class Smoke:
             out[f"{name}_ms"] = round(ms, 4)
             out[f"{name}_plain_ms"] = round(plain_ms, 4)
             self.bound(out, f"{name}_bound_ms", **work)
+        # K3-run at both shapes: the wrapper back to back, the bare kernel's
+        # device time, the wrapper's host time a call
+        for tag, (o, tl, cs) in shapes.items():
+            wrap = (lambda o=o, tl=tl, cs=cs:
+                    bc.run_tiles(cs, *o, tl, masks, T, s))
+            if tag:
+                out["K3-run_cluster_ms"] = self.event_ms(wrap, 20)
+                self.bound(out, "K3-run_cluster_bound_ms",
+                           "K3-run_cluster_bound_by", **run_work[tag])
+            out[f"K3-run_{tag}kernel_ms"] = self.queued_ms(
+                self.run_launch(cs, o, tl, masks, s), 20)[0]
+            out[f"K3-run_{tag}wrapper_host_ms"] = self.queued_ms(wrap, 20)[1]
+        self.kernels["K3-run"].update(
+            kernel_ms=out["K3-run_kernel_ms"],
+            cluster_ms=out["K3-run_cluster_ms"],
+            cluster_kernel_ms=out["K3-run_cluster_kernel_ms"])
+        self.bound(self.kernels["K3-run"], "cluster_bound_ms",
+                   **run_work["cluster_"])
         out["K3_pairs"], out["K3_candidates"] = pairs, cands
-        out["K3-run_pairs"], out["K3-run_candidates"] = rpairs, rcands
         out["K3_pairs_per_s"] = pairs / (self.kernels["K3"]["ms"] * 1e-3)
         out["sm_clock_mhz_after"] = smi_mhz("clocks.sm")
         out["k3_shapes"] = (
             "checked: " + ", ".join(f"{c[0]}-row block s={c[1]} t={c[2]}"
                                     for c in K3_CHECKS)
             + f"; timed: {n}-row block, s={s}, t={T} block 0 (band, and "
-              f"its {len(tiles)} run tiles)")
+              f"its {len(tiles)} run tiles); K3-run's cluster shape: the "
+              f"{len(c_tiles)} run tiles of a {K3_CLUSTER}-row cluster in "
+              f"a {n}-row block, s={s}, t={T} block 0")
         return out
+
+    def changes(self, key_s):
+        """[m] bool: the first position of each equal-key run."""
+        change = self.torch.ones_like(key_s, dtype=self.torch.bool)
+        change[1:] = key_s[1:] != key_s[:-1]
+        return change
 
     def synth_images(self, count: int, sizes=SIZES, seed: int = SEED):
         """Structured grayscale images (sin/cos field + gaussian blobs, as
@@ -1248,17 +1409,34 @@ class Smoke:
             raise AssertionError("pigeonhole and triangle lists differ")
 
     def ph_phase(self):
-        """The pigeonhole count phase on the user scale ROADMAP names."""
+        """The pigeonhole count phase on the user scale ROADMAP names: the
+        PH_ROWS stores, then PH_ROWS[0] rows plus a PH_CLUSTER_SELF-row
+        near-duplicate cluster (every member within 2 bits of one centre:
+        run tiles in every block) through search_self; PH_ROWS[0] rows plus
+        a K3_CLUSTER-row one through the count phase alone (its result
+        held against the triangle too); K3 timed on block 0 of the
+        largest."""
         torch = self.torch
         from cbird_tpu_torch.ops import band_count as bc
         from cbird_tpu_torch.ops import pigeonhole as ph
         from cbird_tpu_torch.ops.hamming import PackedHashStore
         rng = np.random.default_rng(SEED + 4)
         out = {}
-        for n in PH_ROWS:
+        for n, cluster in ((*PH_ROWS[:1], 0), (*PH_ROWS[1:], 0),
+                           (PH_ROWS[0], PH_CLUSTER_SELF),
+                           (PH_ROWS[0], K3_CLUSTER)):
+            if cluster:
+                rng = np.random.default_rng(SEED + 14)
             hashes, ids, src, dst, dead = self.planted_store(n, 1000, rng)
             clus = np.empty(0, np.int64)
-            if n == PH_ROWS[-1]:
+            if cluster:
+                hashes = np.r_[hashes, np.zeros(cluster, np.uint64)]
+                ids = np.arange(1, n + cluster + 1, dtype=np.uint32)
+                clus = np.arange(n, n + cluster)
+                hashes[n] = rng.integers(1, 2**64, dtype=np.uint64)
+                self.k3_cluster(hashes, clus, rng)
+                n += cluster
+            elif n == PH_ROWS[-1]:
                 # 5000 rows that share block 0's key and are random in their
                 # other bits: one equal-key run ~3x the band, so run tiles
                 # launch, with no giant duplicate cluster for the top-k
@@ -1271,40 +1449,94 @@ class Smoke:
             hd, vd = store._device_arrays()
             n_valid = int(np.count_nonzero(store.ids))
             k3 = (bc.band_counts.launches, bc.run_tiles.launches)
-            wall, res = self.timed(lambda: store.search_self(T, k=64,
-                                                             sparse=True))
-            self.check_planted(res, ids, src, dst)
-            if store.rescanned:
-                raise AssertionError(f"verify rescanned {store.rescanned}")
-            if store.pigeonhole is None or bc.band_counts.launches == k3[0]:
+            hot = None
+            if cluster == K3_CLUSTER:
+                # search_self would list the cluster's 2^32 pairs (its
+                # saturation escalation takes minutes): the count phase
+                # it runs first, on the store's arrays
+                stats: dict = {}
+                wall, hot = self.timed(lambda: ph.self_counts_sparse(
+                    hd, vd, T, n_valid, stats=stats))
+                row = {"count_phase_wall_ms": round(wall, 1),
+                       "rows_with_later_hits": len(hot[0])}
+            else:
+                wall, res = self.timed(lambda: store.search_self(
+                    T, k=64, sparse=True))
+                self.check_planted(res, ids, src, dst)
+                if store.rescanned:
+                    raise AssertionError(f"verify rescanned "
+                                         f"{store.rescanned}")
+                # every cluster member's 64 best: all within 4 bits of it
+                for r in clus if cluster else ():
+                    if len(res[r][0]) != 64 or max(res[r][1]) >= T:
+                        raise AssertionError(f"cluster row {r}: "
+                                             f"{res[r]}")
+                stats = store.pigeonhole or {}
+                row = {"search_self_wall_ms": round(wall, 1),
+                       "rows_with_hits": len(res)}
+            if not stats or bc.band_counts.launches == k3[0]:
                 raise AssertionError(f"n={n}: pigeonhole path not taken")
-            if n == PH_ROWS[-1] and bc.run_tiles.launches == k3[1]:
+            if len(clus) and bc.run_tiles.launches == k3[1]:
                 raise AssertionError("the planted run launched no run tiles")
-            row = {"search_self_wall_ms": round(wall, 1),
-                   "s_per_block": store.pigeonhole["s"],
-                   "run_tiles_per_block": store.pigeonhole["run_tiles"],
-                   "rows_with_hits": len(res)}
+            row.update({"s_per_block": stats["s"],
+                        "run_tiles_per_block": stats["run_tiles"],
+                        "K3_launches": bc.band_counts.launches - k3[0],
+                        "K3-run_launches": bc.run_tiles.launches - k3[1]})
             with self.uncounted():  # checks, not the main path
                 count_ms, counts = self.timed(
                     lambda: ph.self_counts(hd, vd, T, n_valid))
                 if counts[n:].any():
                     raise AssertionError(f"n={n}: a padding row counted")
-                if n == PH_ROWS[0] or self.triangle_all:
+                if n != PH_ROWS[-1] or self.triangle_all:
                     tri_ms, tri = self.timed(
                         lambda: store._classic_self_counts(
                             hd, vd, T, hd.numel(), 32768, 1 << 17))
                     if not np.array_equal(counts[:n], tri):
                         raise AssertionError(f"n={n}: pigeonhole counts "
                                              f"differ from the triangle's")
+                    if hot is not None:  # the timed call's own result
+                        dense = np.zeros(len(counts), np.int64)
+                        dense[hot[0]] = hot[1]
+                        if not np.array_equal(dense[:n], tri) \
+                                or dense[n:].any():
+                            raise AssertionError(
+                                f"n={n}: the sparse count phase differs "
+                                f"from the triangle's")
                     row["triangle_count_ms"] = round(tri_ms, 1)
                 else:
                     row["rows_checked_by_K2"] = self.check_sampled(
                         counts, hd, vd, n, np.r_[src, dst, clus], rng)
+                if n == PH_ROWS[-1]:
+                    row.update(self.k3_block0(hd, vd, store.pigeonhole["s"][0]))
             row["pigeonhole_count_ms"] = round(count_ms, 1)
             row["later_hits"] = int(counts.sum())
-            out[f"n{n}"] = row
-            del store, hd, vd, counts, res
+            out[f"n{n}" if not cluster else
+                f"n{n - cluster}_plus_cluster{cluster}"] = row
+            del store, hd, vd, counts
             torch.cuda.empty_cache()
+        return out
+
+    def k3_block0(self, hd, vd, s: int) -> dict:
+        """K3 on block 0 of a store's count phase (its tile size ``s``),
+        timed and held against its bound (the kernels phase's bound)."""
+        torch = self.torch
+        from cbird_tpu_torch.ops import band_count as bc
+        from cbird_tpu_torch.ops import pigeonhole as ph
+        masks = [ph.mask64(m) for m in ph.block_masks(T)]
+        key_s, srow = ph.sort_block(hd, torch.nonzero(vd).flatten(),
+                                    torch.nonzero(~vd).flatten(), masks[0])
+        ops = ph.pad_block(hd, vd, srow, s)
+        n_tot = ops[0].numel()
+        pairs, cands = self.k3_work(key_s, s)
+        ms = self.event_ms(lambda: bc.band_counts(*ops, masks[:1], T, s), 10)
+        out = {"K3_block0_ms": round(ms, 4), "K3_block0_s": s,
+               "K3_block0_pairs": pairs, "K3_block0_candidates": cands,
+               "K3_block0_card": smi()}
+        self.bound(out, "K3_block0_bound_ms", "K3_block0_bound_by",
+                   nbytes=17 * n_tot, popc=2 * cands,
+                   alu=3 * cands + 4 * n_tot, int_ops=4 * cands + 4 * n_tot)
+        self.finish_bounds()
+        out["K3_block0_bound_share"] = round(out["K3_block0_bound_ms"] / ms, 4)
         return out
 
     def check_sampled(self, counts, hd, vd, n: int, planted, rng) -> int:
@@ -1956,41 +2188,68 @@ class Smoke:
         return out
 
     def feat_cpu_check(self, imgs):
-        """The same images on the card and through the CPU path: keypoint
-        agreement (xs, ys and valid equal a slot), descriptor and ROI-hash
-        bits differing on the agreeing keypoints.  A ROI in a flat region
-        (its 64 coefficients below 1e-6 of its DC term in float64) hashes
-        float noise on any device and is counted apart."""
+        """The same images on the card (one chunk) and through the CPU path
+        (chunks of 16, its default): every output of ORB (keypoints,
+        responses, angles, descriptors) equal, and the ROI hashes equal
+        but for flat ROIs (their 64 coefficients below 1e-6 of the DC term
+        in float64: float noise of the DCT's rounding, where a last-ulp
+        difference of the resize in float64 moves every bit; counted
+        apart).  Then FEAT_ALONE of them one at a time on the card: the
+        same features, bit for bit, as in the chunk (the flat ROIs' hashes
+        again counted apart).  Any other difference fails the phase."""
         from cbird_tpu_torch.ops import orb
         pre = [orb._prescale(g) for g in imgs]
-        res = {}
-        for dev in (self.dev, "cpu"):
-            canvas, sizes = orb.pack_chunk(pre, dev)
-            r = orb.features_chunk(canvas, sizes, KP)
-            res[str(dev)] = {k: v.cpu().numpy() for k, v in r.items()}
-        g, c = res[str(self.dev)], res["cpu"]
+
+        def run(dev, chunk):
+            parts = []
+            for s0 in range(0, len(pre), chunk):
+                canvas, sizes = orb.pack_chunk(pre[s0:s0 + chunk], dev)
+                parts.append({k: v.cpu().numpy() for k, v in
+                              orb.features_chunk(canvas, sizes, KP).items()})
+            return {k: np.concatenate([p[k] for p in parts])
+                    for k in parts[0]}
+        g, c = run(self.dev, len(pre)), run("cpu", 16)
+        live = g["valid"] | c["valid"]
         same = (g["xs"] == c["xs"]) & (g["ys"] == c["ys"]) & \
             (g["valid"] == c["valid"])
-        live = g["valid"] | c["valid"]
-        agree = float((same & live).sum() / max(live.sum(), 1))
         kp = same & g["valid"]
         dbits = np.bitwise_count(g["desc"] ^ c["desc"]).sum(axis=2)[kp]
-        both = same & g["hash_ok"] & c["hash_ok"]
-        hbits = np.bitwise_count(g["hash"] ^ c["hash"])
+        both = g["hash_ok"] & c["hash_ok"]
         flat = self.flat_rois(pre, g, both)
-        bad = both & ~flat
-        out = {"cpu_images": len(imgs), "keypoint_agreement": round(agree, 5),
+        hdiff = (g["hash"] != c["hash"]) | (g["hash_ok"] != c["hash_ok"])
+        out = {"cpu_images": len(imgs),
+               "keypoint_agreement": float((same & live).sum()
+                                           / max(live.sum(), 1)),
+               "keypoints_compared": int(live.sum()),
                "descriptors_compared": int(kp.sum()),
                "descriptors_with_flip": int(np.count_nonzero(dbits)),
                "descriptor_bits_differing": int(dbits.sum()),
-               "roi_hashes_compared": int(bad.sum()),
-               "roi_hashes_with_flip": int(np.count_nonzero(hbits[bad])),
-               "roi_hash_max_flip_bits": int(hbits[bad].max(initial=0)),
+               "orb_outputs_differing": {k: int((g[k] != c[k]).sum()) for k in
+                                         orb.KEYS},
+               "roi_hashes_compared": int((both & ~flat).sum()),
+               "roi_hashes_differing": int((hdiff & ~flat).sum()),
                "flat_rois": int((both & flat).sum()),
-               "flat_roi_hashes_differing": int(np.count_nonzero(
-                   hbits[both & flat]))}
-        if agree < 0.99 or out["roi_hash_max_flip_bits"] > 1:
+               "flat_roi_hashes_differing": int((hdiff & flat).sum())}
+        if (any(out["orb_outputs_differing"].values())
+                or out["roi_hashes_differing"]):
             raise AssertionError(f"card against CPU: {out}")
+        alone_diff, alone_flat = {}, 0
+        for n in range(FEAT_ALONE):
+            canvas, sizes = orb.pack_chunk(pre[n:n + 1], self.dev)
+            one = {k: v.cpu().numpy()[0] for k, v in
+                   orb.features_chunk(canvas, sizes, KP).items()}
+            for k, v in one.items():
+                d = v != g[k][n]
+                if k == "hash":
+                    alone_flat += int((d & flat[n]).sum())
+                    d &= ~flat[n]
+                if d.any():
+                    alone_diff[f"image {n} {k}"] = int(d.sum())
+        out.update(alone_images=FEAT_ALONE, alone_differing=alone_diff,
+                   alone_flat_roi_hashes_differing=alone_flat)
+        if alone_diff:
+            raise AssertionError(f"one image at a time against the chunk of "
+                                 f"{len(pre)}: {alone_diff}")
         return out
 
     def flat_rois(self, pre, res, mask):
@@ -2457,8 +2716,8 @@ class Smoke:
                                                     f"q={qn} c={cn}"))
                 checks += 1
         # the one-sided launch of color -similar: needles against a window
-        # of K6_WINDOW rows, each side timed, and its first K6_WINDOW_CHECKED
-        # needles' scores checked (the plain twin scores ~4e6 pairs a second)
+        # of K6_WINDOW rows, each side timed beside its plain twin (one
+        # call, the scores of every needle checked)
         one = {}
         for side in ("ab", "ba"):
             args = (nc, nn, hc[:K6_WINDOW], hn[:K6_WINDOW], hv[:K6_WINDOW])
@@ -2466,11 +2725,17 @@ class Smoke:
                               device=self.dev)
             one[side] = self.event_ms(lambda: cs.color_scores(
                 *args, side=side, out=buf), 3)
-            sub = K6_WINDOW_CHECKED
-            err = max(err, self.same(buf[:sub], cs.color_scores_plain(
-                nc[:sub], nn[:sub], *args[2:], side=side),
-                f"K6 {side} at {q} x {K6_WINDOW}"))
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            want = cs.color_scores_plain(*args, side=side)
+            b.record()
+            torch.cuda.synchronize()
+            one[f"{side}_plain"] = a.elapsed_time(b)
+            err = max(err, self.same(buf, want,
+                                     f"K6 {side} at {q} x {K6_WINDOW}"))
             checks += 1
+            del want
             one[f"{side}_work"] = self.k6_work(nn, hn[:K6_WINDOW],
                                                hv[:K6_WINDOW], side)
             del buf
@@ -2517,7 +2782,9 @@ class Smoke:
             cdist_yardstick_ms=cdist_ms, ms_at_cdist_shape=k6_small,
             probed_k6_step_per_clk_sm=probed,
             shape=f"Q={q} C={c} (two-sided)", ab_window_ms=one["ab"],
-            ba_window_ms=one["ba"], window_shape=f"Q={q} C={w} (one-sided)")
+            ba_window_ms=one["ba"], ab_window_plain_ms=one["ab_plain"],
+            ba_window_plain_ms=one["ba_plain"],
+            window_shape=f"Q={q} C={w} (one-sided)")
         work = self.k6_work(nn, hn[:c], hv[:c])
         self.bound(self.kernels["K6"], "bound_ms", "bound_by", **work)
         for side in ("ab", "ba"):
@@ -2527,6 +2794,8 @@ class Smoke:
                "K6_ms": round(ms, 4), "K6_plain_ms": round(plain_ms, 4),
                "K6_ab_window_ms": round(one["ab"], 4),
                "K6_ba_window_ms": round(one["ba"], 4),
+               "K6_ab_window_plain_ms": round(one["ab_plain"], 4),
+               "K6_ba_window_plain_ms": round(one["ba_plain"], 4),
                "K6_cdist_64x1024_ms": round(cdist_ms, 4),
                "K6_64x1024_ms": round(k6_small, 4),
                "K6_probed_step_per_clk_sm": round(probed, 2),
@@ -2781,11 +3050,10 @@ class Smoke:
         matcher's scores both ways (the first TM_CASES); at most a tenth of
         the sources apart and of fdct's cross-source pairs kept; K5's
         mutual match equal to numpy on TM_SAMPLED_PAIRS pairs; the pairs of
-        TM_CPU_GROUPS groups scored on the card and on the CPU.  A score
-        that differs between the two must come with ORB features that
-        differ (float noise on a rounding edge moves a keypoint or flips
-        a bit, and RANSAC's pick with it): the same features with another
-        score fail the phase."""
+        TM_CPU_GROUPS groups scored on the card and on the CPU.  Every score
+        must equal the CPU's (ORB gives the same features on both); a
+        differing one is printed with whether the two ORBs differ, and
+        fails the phase."""
         torch = self.torch
         from cbird_tpu_torch.cli import main as cli
         from cbird_tpu_torch.host import template_matcher as tmm
@@ -3004,6 +3272,10 @@ class Smoke:
         if faults:
             raise AssertionError(f"{faults} scores differ from the CPU's "
                                  f"on the same ORB features")
+        if noisy:
+            raise AssertionError(f"{noisy} scores differ from the CPU's "
+                                 f"(ORB's features are the same on every "
+                                 f"device and in any batch)")
         return out
 
     def timed_s(self, fn):

@@ -3,7 +3,8 @@ forms of the tensor-core count (K1-mma), the 256-bit k-nearest search (K5)
 and the chamfer color score (K6), and the forms of the color descriptor's
 exact fma (``ops/exact32.py``), measured on one NVIDIA GPU.
 
-    python3 chip_tune.py [k4] [k3] [mma] [k5] [k6] [fma]   (default: all)
+    python3 chip_tune.py [k4] [k3] [k3run] [mma] [k5] [k6] [fma]
+                                                            (default: all)
 
 Writes every variant below of ``csrc/hamming_topk.cu``,
 ``csrc/band_count.cu``, ``csrc/count_below_mma.cu``,
@@ -28,6 +29,20 @@ reported and left out (the run then exits non-zero):
       columns of 32 rows (by s as ``split_for`` sets it, or fixed), each
       taking SPAN columns in turn, columns staged through shared memory
       or read through L1.
+  k3run  K3-run (the run tiles) at chip_smoke's two shapes: the 3 run
+      tiles of its timed block (2^20 rows, s=2048, t=5 block 0) and the
+      ~465 hit-dense run tiles of a 65,536-row near-duplicate cluster in a
+      block of the same size (built as chip_smoke's kernels phase builds
+      it), each form's bare launch checked against the plain twin and
+      timed on the card alone (queued behind a spin: no host time).
+      Forms: the source (a block a unit) and a persistent grid of 528
+      blocks (4 an SM) walking its units; rows a thread (RUN_RPT) 2 and
+      1; chunks of 128 columns; column slices for 2 and 32 units a block;
+      slices of at least 256 columns; registers capped for 4 blocks an
+      SM; the column loop unrolled 8 and 2; and the form of
+      commit K3RUN_OLD (a block a tile pair's 1024 rows x 64 columns, a
+      global atomic a lane a column credit), its source from ``git
+      show``, kept in ``build/tune/`` for a copy without git.
   mma K1-mma (wgmma), unmasked at Q=16384 x 65536 (the triangle's tile),
       Q=1024 x 2^20 (the 1024-needle gate) and Q=16384 x 2^21 (the video
       gate), masked on the diagonal tile of the first two; t=5.  The
@@ -526,6 +541,49 @@ K6_VARIANTS = {
 # the form before this design, timed only (its d2 is unfused)
 K6_OLD = "c2e23a7"
 K6_OLD_FORM = f"commit {K6_OLD} (timed only)"
+# K3-run's forms (the first is the source as it is) and the form of commit
+# K3RUN_OLD.  The persistent grid: 528 blocks (4 an SM) walking the units.
+K3RUN_OLD = "8b9deab"
+K3RUN_PERSISTENT = (
+    ("           const int* __restrict__ tiles, int rs, int cs,\n",
+     "           const int* __restrict__ tiles, long long units, int rs,\n"
+     "           int cs,\n"),
+    ("                          const int*, int, int, int, int*);",
+     "                          const int*, long long, int, int, int, int*);"),
+    ("  const long long u = blockIdx.x;  // the block's unit\n",
+     "  for (long long u = blockIdx.x; u < units; u += gridDim.x) {\n"),
+    ("    return;  // block-uniform", "    continue;  // block-uniform"),
+    ("    if (acc[k]) atomicAdd(out + r_lo + k * RUN_THREADS + tid, acc[k]);\n}\n",
+     "    if (acc[k]) atomicAdd(out + r_lo + k * RUN_THREADS + tid, acc[k]);\n"
+     "  }\n}\n"),
+    ("  kern<<<(int)units, RUN_THREADS, 0, st>>>(",
+     "  kern<<<528, RUN_THREADS, 0, st>>>("),
+    ("static_cast<const int*>(tiles), rs, cs,",
+     "static_cast<const int*>(tiles), units, rs, cs,"),
+)
+K3RUN_FORMS = {
+    "source": (),
+    "a persistent grid (528 blocks)": K3RUN_PERSISTENT,
+    "2 rows a thread": (("constexpr int RUN_RPT = 4;",
+                         "constexpr int RUN_RPT = 2;"),),
+    "1 row a thread": (("constexpr int RUN_RPT = 4;",
+                        "constexpr int RUN_RPT = 1;"),),
+    "chunks of 128": (("constexpr int RUN_CHUNK = 256;",
+                       "constexpr int RUN_CHUNK = 128;"),),
+    "2 units a block": (("constexpr int UNITS_PER_BLOCK = 8;",
+                         "constexpr int UNITS_PER_BLOCK = 2;"),),
+    "32 units a block": (("constexpr int UNITS_PER_BLOCK = 8;",
+                          "constexpr int UNITS_PER_BLOCK = 32;"),),
+    "slices of >= 256": (("constexpr int RUN_MIN_COLS = 64;",
+                          "constexpr int RUN_MIN_COLS = 256;"),),
+    "4 blocks an SM": (("__launch_bounds__(RUN_THREADS)",
+                        "__launch_bounds__(RUN_THREADS, 4)"),),
+    "columns unrolled 8": (("#pragma unroll 4\n      for (int j = 0; j < 32",
+                            "#pragma unroll 8\n      for (int j = 0; j < 32"),),
+    "columns unrolled 2": (("#pragma unroll 4\n      for (int j = 0; j < 32",
+                            "#pragma unroll 2\n      for (int j = 0; j < 32"),),
+}
+K3RUN_OLD_FORM = f"commit {K3RUN_OLD}"
 PTXAS: dict = {}  # (source name, form) -> ptxas's registers and spills
 
 
@@ -572,14 +630,19 @@ def build_variant(name: str, edits: tuple, src: str | None = None,
 
 
 def k6_old_source() -> str:
-    """color_scores.cu at commit K6_OLD: from git, kept in build/tune/ so
-    that a copy of the tree without git finds it."""
+    """color_scores.cu at commit K6_OLD (``old_source``)."""
+    return old_source("color_scores", K6_OLD)
+
+
+def old_source(name: str, commit: str) -> str:
+    """csrc/<name>.cu at ``commit``: from git, kept in build/tune/ so that a
+    copy of the tree without git finds it."""
     from cbird_tpu_torch import _build
     keep = os.path.join(os.path.dirname(_build.BUILD_DIR), "tune",
-                        f"color_scores-{K6_OLD}.cu")
+                        f"{name}-{commit}.cu")
     try:
         src = subprocess.run(
-            ["git", "show", f"{K6_OLD}:cbird_tpu_torch/csrc/color_scores.cu"],
+            ["git", "show", f"{commit}:cbird_tpu_torch/csrc/{name}.cu"],
             cwd=os.path.dirname(os.path.abspath(__file__)), check=True,
             capture_output=True, text=True, timeout=60).stdout
     except (OSError, subprocess.SubprocessError):
@@ -614,8 +677,8 @@ def scan_launch(torch, lib, nd, h, v, k: int, bound: int):
 
 def main() -> int:
     import torch
-    parts = sys.argv[1:] or ["k4", "k3", "mma", "k5", "k6", "fma"]
-    if not set(parts) <= {"k4", "k3", "mma", "k5", "k6", "fma"}:
+    parts = sys.argv[1:] or ["k4", "k3", "k3run", "mma", "k5", "k6", "fma"]
+    if not set(parts) <= {"k4", "k3", "k3run", "mma", "k5", "k6", "fma"}:
         print(f"chip_tune: unknown parts {parts}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -632,6 +695,8 @@ def main() -> int:
     s = chip_smoke.Smoke(torch)
     jobs = ([("hamming_topk", v) for v in K4_VARIANTS] * ("k4" in parts)
             + [("band_count", v) for v in K3_VARIANTS] * ("k3" in parts)
+            + [("run_tiles", v) for v in [*K3RUN_FORMS, K3RUN_OLD_FORM]]
+            * ("k3run" in parts)
             + [("count_below_mma", v) for v in MMA_FORMS]
             * ("mma" in parts)
             + [("hamming_lanes_topk", v) for v in K5_FORMS] * ("k5" in parts)
@@ -644,6 +709,11 @@ def main() -> int:
 
     def build(job):
         try:
+            if job[0] == "run_tiles":
+                return build_variant(
+                    "band_count", K3RUN_FORMS.get(job[1], ()), ptxas=job,
+                    src=old_source("band_count", K3RUN_OLD)
+                    if job[1] == K3RUN_OLD_FORM else None)
             if job[0] == "color_scores":
                 return build_variant(
                     job[0], edits[job[0]](job[1]), ptxas=job,
@@ -673,6 +743,9 @@ def main() -> int:
             lib.cbird_band_counts.argtypes = bc._COMMON + [ctypes.c_void_p,
                                                            ctypes.c_void_p]
             lib.cbird_band_counts.restype = ctypes.c_int
+        elif name == "run_tiles":
+            lib.cbird_run_tiles.argtypes = bc._RUN_ARGS
+            lib.cbird_run_tiles.restype = ctypes.c_int
         elif name == "count_below_mma":
             lib.cbird_count_below_mma.argtypes = cm._ARGTYPES
             lib.cbird_count_below_mma.restype = ctypes.c_int
@@ -690,6 +763,8 @@ def main() -> int:
         ok &= tune_k4(torch, s, libs)
     if "k3" in parts:
         ok &= tune_k3(torch, s, libs)
+    if "k3run" in parts:
+        ok &= tune_k3run(torch, s, libs)
     if "mma" in parts:
         ok &= tune_mma(torch, s, libs)
     if "k5" in parts:
@@ -1068,6 +1143,60 @@ def tune_k3(torch, s, libs) -> bool:
                               "warps_per_32_rows": v[1],
                               "span": v[2], "shared_stage": v[3],
                               "ms": k3[v]}),
+                  flush=True)
+    return ok
+
+
+
+def tune_k3run(torch, s, libs) -> bool:
+    """K3-run's forms against each other (module docstring)."""
+    import chip_smoke
+    from cbird_tpu_torch import _build
+    from cbird_tpu_torch.ops import band_count as bc
+    from cbird_tpu_torch.ops import pigeonhole as ph
+    ok = True
+    n, sz, _ = chip_smoke.K3_CHECKS[0]
+    rng = np.random.default_rng(chip_smoke.SEED + 5)
+    shapes = {"3 tiles": s.k3_data(n, sz, rng)}
+    h64, valid = s.k3_data(n, sz, rng)
+    m0 = ph.mask64(ph.block_masks(chip_smoke.T)[0]) % 2**64
+    s.k3_cluster(h64, np.arange(n // 4, n // 4 + chip_smoke.K3_CLUSTER), rng,
+                 outside=m0)
+    shapes["cluster"] = (h64, valid)
+    stream = torch.cuda.current_stream().cuda_stream
+    for shape, (h, v) in shapes.items():
+        ops, masks, key_s = s.k3_block(h, v, chip_smoke.T, 0, sz)
+        tiles = ph.run_tile_pairs(key_s, s.changes(key_s), sz)
+        marr = bc._mask_array(masks)
+        want = bc.run_tiles_plain(torch.zeros_like(ops[1]), *ops, tiles,
+                                  masks, chip_smoke.T, sz)
+        forms = [*K3RUN_FORMS, K3RUN_OLD_FORM]
+
+        def launch(form, out):
+            lib = libs[("run_tiles", form)]
+            args = [*(a.data_ptr() for a in ops), ops[0].numel(), sz,
+                    ctypes.addressof(marr), len(masks), chip_smoke.T,
+                    tiles.data_ptr(), len(tiles), out.data_ptr()]
+            return lambda: _build.check(lib, lib.cbird_run_tiles(
+                *args, stream), "run_tiles")
+        ms = {f: [] for f in forms if ("run_tiles", f) in libs}
+        for form in ms:
+            out = torch.zeros_like(ops[1])
+            launch(form, out)()
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                print(f"chip_tune: K3-run {form} differs from the plain "
+                      f"twin at {shape}", file=sys.stderr)
+                ok = False
+        scratch = torch.zeros_like(ops[1])
+        for _ in range(2):
+            for form in ms:
+                ms[form].append(s.queued_ms(launch(form, scratch), 10)[0])
+        for form, v in ms.items():
+            print(json.dumps({"kernel": "K3-run run_tiles", "shape": shape,
+                              "tiles": len(tiles), "form": form,
+                              "device_ms": v,
+                              "ptxas": PTXAS.get(("run_tiles", form))}),
                   flush=True)
     return ok
 

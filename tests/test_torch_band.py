@@ -80,6 +80,58 @@ def test_run_tiles_plain_matches_reference():
     assert seen > 0
 
 
+def test_dense_run_tiles_match_reference():
+    """A hit-dense run (1200 rows within 2 bits of one base, outside block
+    0's bits, so every pair of the run counts there): the tile list that
+    run_tile_pairs builds on the order's device equals the JAX package's,
+    run_tiles_plain over it equals the JAX _run_tile steps, and one of its
+    tiles, wholly inside the run, equals _run_contribs and credits all
+    s * s pairs."""
+    t, s, n = 5, 128, 4096
+    rng = np.random.default_rng(57)
+    hashes = rng.integers(1, 2**63, size=n, dtype=np.uint64)
+    masks = jp.block_masks(t)
+    m0 = masks[0][0] | masks[0][1] << 32
+    free = [b for b in range(64) if not m0 >> b & 1]
+    base = hashes[0]
+    for i in rng.choice(n, size=1200, replace=False):
+        flips = rng.choice(free, size=int(rng.integers(0, 3)), replace=False)
+        hashes[i] = base ^ np.uint64(sum(1 << int(b) for b in flips))
+    valid = np.ones(n, bool)
+    out, port, block = _jax_block(hashes, valid, t, 0, s)
+    slo, shi, srow, svalid, os_start, os_end, _ = out
+    want_tiles = set()
+    ends = np.nonzero(np.asarray(os_end))[0] + s
+    for st, en in zip(np.nonzero(np.asarray(os_start))[0], ends):
+        for ta in range(st // s, en // s - 1):
+            want_tiles.update((ta, tb) for tb in range(ta + 2, en // s + 1))
+    key_s = port[0][:n] & block[0]
+    change = torch.ones(n, dtype=torch.bool)
+    change[1:] = key_s[1:] != key_s[:-1]
+    tiles = tp.run_tile_pairs(key_s, change, s)
+    assert tiles.dtype == torch.int32 and tiles.device == key_s.device
+    assert [tuple(p) for p in tiles.tolist()] == sorted(want_tiles)
+    assert len(tiles) >= 28
+    ref = jnp.zeros(n + s, jnp.int32)
+    for ta, tb in tiles.tolist():
+        ref = jp._run_tile(ref, slo, shi, srow, svalid, jnp.int32(ta * s),
+                           jnp.int32(tb * s), mask_cur=masks[0],
+                           mask_prev=(), s=s, t=t)
+    csort = torch.zeros(n + s, dtype=torch.int32)
+    got = bc.run_tiles_plain(csort, *port, tiles, block, t, s)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    ta = int(tiles[0, 0]) + 1  # inside the run: its first tile is partial
+    tb = ta + 2
+    row_ct, col_ct = jp._run_contribs(
+        slo, shi, srow, svalid, jnp.int32(ta * s), jnp.int32(tb * s),
+        mask_cur=masks[0], mask_prev=(), s=s, t=t)
+    one = bc.run_tiles_plain(torch.zeros(n + s, dtype=torch.int32), *port,
+                             [(ta, tb)], block, t, s).numpy()
+    np.testing.assert_array_equal(one[ta * s:ta * s + s], np.asarray(row_ct))
+    np.testing.assert_array_equal(one[tb * s:tb * s + s], np.asarray(col_ct))
+    assert one.sum() == s * s  # hit-dense: every pair of the tile counts
+
+
 def test_self_counts_oversized_run():
     """Runs longer than the band go through the dense run tiles."""
     hashes, valid = _cluster(50)
@@ -246,3 +298,24 @@ def test_run_bounded_kernel_on_card(cuda, n, s, t):
         assert torch.equal(
             bc.run_tiles(got, sh, srow, svalid, tiles, masks, t, s),
             bc.run_tiles_plain(want, sh, srow, svalid, tiles, masks, t, s)), b
+
+
+@pytest.mark.cuda
+def test_dense_run_tiles_on_card(cuda):
+    """K3-run on a hit-dense run, its tile list built on the card, against
+    the plain twin, for every block."""
+    t, s = 5, 256
+    hashes, valid = _cluster(58, n=16384, size=6000)
+    for b in range(t):
+        _, port, block = _jax_block(hashes, valid, t, b, s)
+        dev = [a.to(cuda) for a in port]
+        key_s = dev[0][:len(hashes)] & block[0]
+        change = torch.ones_like(key_s, dtype=torch.bool)
+        change[1:] = key_s[1:] != key_s[:-1]
+        tiles = tp.run_tile_pairs(key_s, change, s)
+        assert tiles.is_cuda and len(tiles) > 0, b
+        got = bc.run_tiles(torch.zeros_like(dev[1]), *dev, tiles, block, t, s)
+        want = bc.run_tiles_plain(torch.zeros_like(dev[1]), *dev, tiles,
+                                  block, t, s)
+        assert torch.equal(got, want), b
+

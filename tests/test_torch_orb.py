@@ -298,6 +298,29 @@ def test_extract_features_batch(grays, canvas, at_few_levels):
     check_desc(np.concatenate(bits), MEASURED["all"])
 
 
+def test_features_independent_of_batch(grays):
+    """One image alone gives, bit for bit, the features it gets in a batch
+    of 8 (at FEW_LEVELS levels; the level images at every level of the
+    default pyramid): no step rounds by the batch's shape."""
+    rng = np.random.default_rng(78)
+    imgs = [po._prescale(g) for g in grays] + [
+        po._prescale(textured(rng, 200 + 40 * i, 300)) for i in range(5)]
+    canvas, sizes = po.pack_chunk(imgs, "cpu")
+    n = 5
+    for lvl, (out_n, _) in enumerate(po._level_dims(12)):
+        one = po._resize_area(canvas[n:n + 1], sizes[n:n + 1, 0],
+                              sizes[n:n + 1, 1], out_n)[0]
+        all8 = po._resize_area(canvas, sizes[:, 0], sizes[:, 1], out_n)[0]
+        assert torch.equal(one[0], all8[n]), lvl
+    nfeat = 100  # a quarter of the default: the ROI hashes take most time
+    batch = po.features_chunk(canvas, sizes, nfeat, levels=FEW_LEVELS)
+    alone = po.features_chunk(canvas[n:n + 1], sizes[n:n + 1], nfeat,
+                              levels=FEW_LEVELS)
+    for key, v in alone.items():
+        assert torch.equal(v[0], batch[key][n]), key
+    assert batch["valid"].sum() > 8 * 50 and alone["hash_ok"].sum() > 20
+
+
 # ---- the fdct and orb CLI against the JAX package's ------------------------
 
 ARGS = ["-i.algos", "dct+fdct+orb"]

@@ -119,3 +119,30 @@ def test_none_exactly_where_reference_declines():
         port = _port(hashes, valid)
         assert tp.self_counts(*port, t, len(hashes), s=s) is None
         assert tp.self_counts_sparse(*port, t, len(hashes), s=s) is None
+
+
+def test_cluster_runs_over_three_tiles_equal_triangle():
+    """A store with a near-duplicate cluster (every member within 2 bits of
+    one base), whose equal-key run spans three tiles or more in every
+    block: the count phase, its run tiles listed on the store's device,
+    gives the classic triangle's counts (``_classic_self_counts``), the
+    numpy golden's and the JAX count phase's."""
+    from cbird_tpu_torch.ops.hamming import PackedHashStore
+    t, s = 5, 256
+    hashes, valid = _cluster(56, n=8192, size=2500)
+    valid[np.random.default_rng(56).choice(8192, 80, replace=False)] = False
+    store = PackedHashStore(hashes, np.arange(1, 8193, dtype=np.uint32),
+                            device="cpu")
+    hd, vd = _port(hashes, valid)
+    stats: dict = {}
+    hot, hot_counts = tp.self_counts_sparse(hd, vd, t, int(valid.sum()),
+                                            s=s, stats=stats)
+    assert all(n >= 1 for n in stats["run_tiles"]), stats
+    got = np.zeros(len(hashes), np.int32)
+    got[hot] = hot_counts
+    want = store._classic_self_counts(hd, vd, t, len(hashes), 1024, 4096)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(_golden(hashes, valid, t), want)
+    np.testing.assert_array_equal(_jax_counts(hashes, valid, t, s=s), want)
+    assert want.sum() > 2500 * 2499 // 2 // 2
+

@@ -280,8 +280,6 @@ def test_slice_imports_no_jax(corpus):
         "    with contextlib.redirect_stdout(io.StringIO()):\n"
         f"        assert main(['-use', {d!r}, '-i.algos', 'dct+' + alg,"
         " '-update', '-p.alg', alg, '-similar']) == 0\n"
-        "from cbird_tpu_torch.ops import orb\n"
-        "orb.N_LEVELS = 2  # the matcher's ORB at two levels: cheap\n"
         "with contextlib.redirect_stdout(io.StringIO()):\n"
         f"    assert main(['-use', {d!r}, '-p.tm', '1', '-similar']) == 0\n"
         "import os, threading, time\n"
@@ -305,7 +303,10 @@ def test_slice_imports_no_jax(corpus):
         "       or k.startswith(('jax.', 'cbird_tpu.'))]\n"
         "assert not bad, bad\n"
         "print('NOJAX-OK')\n")
-    env = dict(os.environ, CBIRD_TORCH_DEVICE="cpu")
+    # ORB at two levels (the scanner's fdct and orb -update too) and two
+    # torch threads: the extraction stays cheap under a loaded machine
+    env = dict(os.environ, CBIRD_TORCH_DEVICE="cpu", CBIRD_ORB_LEVELS="2",
+               OMP_NUM_THREADS="2", MKL_NUM_THREADS="2")
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=300,
                           cwd=os.path.dirname(os.path.dirname(__file__)))
