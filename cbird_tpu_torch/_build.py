@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled with nvcc
 for Hopper (``sm_90a``) into ``build/cbird_tpu_torch/`` beside the
 package, at first use, then loaded with ctypes.  The library's file name
-carries a hash of the source, so an edited source is rebuilt.  A failed
-build raises: there is no fallback.
+carries a hash of the source and of the local headers it includes
+(``#include "..."``, such as ``csrc/sm90.cuh``), so an edited source or
+header is rebuilt.  A failed build raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -24,6 +26,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "cbird_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -44,11 +48,27 @@ def nvcc() -> str:
     raise BuildError("nvcc not found (put it on PATH or set CUDA_HOME)")
 
 
+def sources(name: str) -> list[str]:
+    """``csrc/<name>.cu`` and the local headers it includes, recursively,
+    each once, in the order first met."""
+    out, todo = [], [os.path.join(CSRC, f"{name}.cu")]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        with open(path) as f:
+            todo += [os.path.join(os.path.dirname(path), inc)
+                     for inc in _INCLUDE.findall(f.read())]
+    return out
+
+
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    digest = hashlib.sha256()
+    for path in sources(name):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
 def build(name: str) -> str:

@@ -69,8 +69,8 @@
 // the units' padding to 192 rows; the epilogue and the unpack overlap them
 // at a bound such as the orb index's.  An unbounded call takes the rare
 // case at most steps and runs ~3x longer.
-// The PTX helpers (barriers, bulk copies, descriptors, wgmma) are copies of
-// count_below_mma.cu's: chip_tune.py rebuilds edits of that file's text.
+// The PTX helpers (barriers, bulk copies, descriptors, wgmma) are
+// sm90.cuh's, which count_below_mma.cu shares.
 //
 // The popcount form (lanes_scan, cbird_lanes_topk_popc) stays as the
 // yardstick; only chip_smoke.py's checks launch it.  A block holds 128
@@ -85,6 +85,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -242,143 +244,6 @@ __host__ __device__ constexpr int smem_bytes(int kt) {
          list_bytes(kt) + (2 * STAGES + RAW_STAGES) * 8;
 }
 static_assert(smem_bytes(10) <= 232448, "shared memory");
-
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ bool bar_try(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
-  return ok != 0;
-}
-
-// waits for the phase of the given parity; a wait of 2^34 clocks (~8 s)
-// means a broken ring, and traps rather than holding the card
-__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
-  if (bar_try(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!bar_try(bar, parity))
-    if (clock64() - t0 > (1ll << 34)) __trap();
-}
-
-__device__ __forceinline__ void bar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// shared-memory stores and loads by address
-__device__ __forceinline__ void sts128(uint32_t addr, uint32_t x, uint32_t y,
-                                       uint32_t z, uint32_t w) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(addr),
-               "r"(x), "r"(y), "r"(z), "r"(w) : "memory");
-}
-__device__ __forceinline__ void sts32(uint32_t addr, uint32_t x) {
-  asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr), "r"(x) : "memory");
-}
-__device__ __forceinline__ unsigned long long lds64(uint32_t addr) {
-  unsigned long long v;
-  asm volatile("ld.shared.b64 %0, [%1];" : "=l"(v) : "r"(addr) : "memory");
-  return v;
-}
-__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
-  uint32_t v;
-  asm volatile("ld.shared.b32 %0, [%1];" : "=r"(v) : "r"(addr) : "memory");
-  return v;
-}
-__device__ __forceinline__ uint32_t lds8(uint32_t addr) {
-  uint32_t v;
-  asm volatile("ld.shared.u8 %0, [%1];" : "=r"(v) : "r"(addr) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-
-// word w (0..15) of a 64-bit word's +-1 vector: byte b is +1 (e4m3 0x38)
-// for a clear bit, -1 (0xB8) for a set one, of bit 32 * (w >> 3) + 8 * b +
-// (w & 7).  A and B use the same order of the lanes, so the dot does not
-// depend on it.
-__device__ __forceinline__ uint32_t pm1_word(unsigned long long h, int w) {
-  const uint32_t x = static_cast<uint32_t>(h >> (32 * (w >> 3))) >> (w & 7);
-  return (x & 0x01010101u) * 0x80u + 0x38383838u;
-}
-
-// B descriptor (K-major, no swizzle): core matrices of 8 columns x 16
-// bytes; the next 16 bytes of k (LBO) 128 bytes on, the next 8 columns
-// (SBO) GROUP bytes on
-__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(128 >> 4) << 16) |
-         (static_cast<uint64_t>(GROUP >> 4) << 32);
-}
-
-// d (+)= A (64 x 32 e4m3, registers) x B (32 x 256 e4m3, shared memory),
-// f16 sums two a register; d is zeroed first where SCALE_D is 0
-#define D8(i)                                                              \
-  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), \
-      "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
-template <int SCALE_D>
-__device__ __forceinline__ void mma_e4m3(int (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t desc) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k32.f16.e4m3.e4m3 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
-      "}\n"
-      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(SCALE_D));
-}
-#undef D8
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// the sums are read only after the wait: keep the compiler from moving
-// their reads above it
-template <int N>
-__device__ __forceinline__ void acc_fence(int (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
 
 // f16x2: the larger of each half
 __device__ __forceinline__ uint32_t hmax2(uint32_t x, uint32_t y) {
@@ -647,11 +512,12 @@ __device__ __forceinline__ void consumer(
       // the last epilogue's reads land before the products start
       acc_fence(acc);
       wgmma_fence();
-      mma_e4m3<0>(acc, a[0], b_desc(sb));
+      mma_e4m3<0>(acc, a[0], b_desc(sb, 128, GROUP));
 #pragma unroll
-      for (int s = 1; s < 8; ++s) mma_e4m3<1>(acc, a[s], b_desc(sb + 256 * s));
+      for (int s = 1; s < 8; ++s)
+        mma_e4m3<1>(acc, a[s], b_desc(sb + 256 * s, 128, GROUP));
       wgmma_commit();
-      wgmma_wait0();
+      wgmma_wait<0>();
       acc_fence(acc);
       // the common case: no sum of the warp's rows passes its limit (a
       // tree of maxima, four independent chains a row)

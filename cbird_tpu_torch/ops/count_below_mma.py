@@ -20,7 +20,9 @@ On a CPU tensor the wrapper runs ``count_below_mma_plain`` (the same +-1
 product in float32); on any other device it launches the kernel or
 raises.  The main form is a wgmma kernel on e4m3 +-1 operands with f16
 sums (the int8 rate; exact, |sum| < 2048; a row's hits added as
-integers).  ``count_below_mma.launches`` counts launches of its unmasked
+integers); ``bf16=True`` runs the same kernel template on bf16 operands
+with f32 sums (the bf16 rate, half of it; exact; no main-path launches).
+``count_below_mma.launches`` counts launches of its unmasked
 form, ``count_below_mma.masked_launches`` those of its masked form,
 ``count_below_mma.bf16_launches`` those of the bf16 form.
 

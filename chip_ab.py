@@ -1,9 +1,10 @@
 """This checkout against another checkout's, in one process on one NVIDIA
 GPU: K4's wrapper (``hamming_topk``) under three timing methods, and, as
-asked, ORB's feature extraction and K3-run's wrapper.
+asked, ORB's feature extraction, K3-run's wrapper and the tensor-core
+count (``count_below_mma``, both operand types).
 
     git archive <commit> | tar -x -C build/other    # here, with git
-    python3 chip_ab.py build/other [ROUNDS] [k4] [feat] [k3run]
+    python3 chip_ab.py build/other [ROUNDS] [k4] [feat] [k3run] [k1bf16]
                                                     (default: k4)
 
   feat   ``extract_features_batch`` of chip_smoke.py's feat images (1024,
@@ -15,6 +16,11 @@ asked, ORB's feature extraction and K3-run's wrapper.
          the other's wrapper on the tile list as the host list it took,
          this one's on the list on the card; the outputs equal; CUDA-event
          ms of 20 calls (the wrapper back to back) a round, in turns.
+  k1bf16 ``count_below_mma`` of each package on chip_smoke.py's K1-mma
+         timing operands (its seed) at each of its MMA_SHAPES: the bf16
+         form, and the e4m3 form beside it (K1-mma; K2-mma on the diagonal
+         tiles of MMA_SHAPES[2] and [3]); the counts equal; CUDA-event ms
+         of 20 calls a round, the two packages in turns.
 
 The other checkout's package is loaded beside this one's under another
 name, and each builds its own kernel from its own sources.  On
@@ -104,7 +110,7 @@ def main() -> int:
     args = sys.argv[2:]
     rounds = int(args.pop(0)) if args and args[0].isdigit() else 10
     parts = args or ["k4"]
-    if not set(parts) <= {"k4", "feat", "k3run"}:
+    if not set(parts) <= {"k4", "feat", "k3run", "k1bf16"}:
         print(f"chip_ab: unknown parts {parts}", file=sys.stderr)
         return 2
     print(subprocess.run(
@@ -113,7 +119,8 @@ def main() -> int:
         text=True).stdout.strip().splitlines()[0], flush=True)
     ok = True
     for part in parts:
-        ok &= {"k4": ab_k4, "feat": ab_feat, "k3run": ab_k3run}[part](
+        ok &= {"k4": ab_k4, "feat": ab_feat, "k3run": ab_k3run,
+               "k1bf16": ab_k1bf16}[part](
             torch, sys.argv[1], rounds)
     return 0 if ok else 1
 
@@ -242,6 +249,50 @@ def ab_k3run(torch, root: str, rounds: int) -> bool:
                                         for k, v in ms.items()}}),
               flush=True)
     return ok
+
+
+def ab_k1bf16(torch, root: str, rounds: int) -> bool:
+    """The tensor-core count of each package at chip_smoke's MMA_SHAPES."""
+    import chip_smoke
+    from cbird_tpu_torch.ops import count_below_mma as this_cm
+    other_cm = load_other(root, "ops.count_below_mma")
+    s = chip_smoke.Smoke(torch)
+    # chip_smoke.mma_kernels' timing operands
+    rng = np.random.default_rng(chip_smoke.SEED + 7)
+    n = max(sh[1] for sh in chip_smoke.MMA_SHAPES)
+    h64 = rng.integers(0, 2**64, size=n, dtype=np.uint64)
+    hay = torch.from_numpy(h64.view(np.int64)).cuda()
+    vd = torch.from_numpy(rng.random(n) > 0.01).cuda()
+    nd = torch.from_numpy(s.flip_bits(
+        h64[rng.integers(0, n, 16384)], rng.integers(0, 8, 16384),
+        rng).view(np.int64)).cuda()
+    cases = [(f"bf16 Q={q} N={m} t={t}", (nd[:q], hay[:m], vd[:m], t),
+              dict(bf16=True)) for q, m, t in chip_smoke.MMA_SHAPES]
+    cases += [(f"e4m3 Q={q} N={m} t={t}", (nd[:q], hay[:m], vd[:m], t), {})
+              for q, m, t in chip_smoke.MMA_SHAPES]
+    cases += [(f"e4m3 diagonal Q={q} N={m} t={t}",
+               (hay[:q], hay[:m], vd[:m], t), dict(masked=True))
+              for q, m, t in chip_smoke.MMA_SHAPES[2:4]]
+    ok = True
+    for case, args, kw in cases:
+        calls = {name: (lambda cm=cm: cm.count_below_mma(*args, **kw))
+                 for name, cm in (("other", other_cm), ("this", this_cm))}
+        got = {name: call() for name, call in calls.items()}
+        if not torch.equal(got["other"], got["this"]):
+            print(f"chip_ab: the two count_below_mma disagree at {case}",
+                  file=sys.stderr)
+            ok = False
+        ms = {k: [] for k in calls}
+        for r in range(rounds):
+            for name in (("other", "this") if r % 2 == 0
+                         else ("this", "other")):
+                ms[name].append(event_ms(torch, calls[name], "collect"))
+        print(json.dumps({"part": "k1bf16", "case": case, "ms": ms,
+                          "median_ms": {k: statistics.median(v)
+                                        for k, v in ms.items()}}),
+              flush=True)
+    return ok
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -14,8 +14,9 @@ compiler made of both and what the card sustains:
            into OUT_DIR/<name>.sass,
            and per loop (a backward branch) the opcode counts of its body;
            for the wgmma kernels (K1-mma, K2-mma, K5) their main loop's
-           warpgroup MMAs (QGMMA for e4m3, IGMMA for s8), moves, shifts,
-           LEA, HADD2, barriers (SYNCS, BAR, WARPGROUP) and shared loads
+           warpgroup MMAs (QGMMA for e4m3, IGMMA for s8, HGMMA for bf16),
+           moves, shifts, LEA, HADD2, barriers (SYNCS, BAR, WARPGROUP) and
+           shared loads
            and stores: the script fails if a main loop holds no *GMMA or
            an mma.sync (IMMA, HMMA); for K6 its loops of 100 or more
            instructions (the color-pair loops and the needle loop around
@@ -37,8 +38,11 @@ compiler made of both and what the card sustains:
            product's sign bits after it, as IGMMA per clock per SM and
            int8 TOPS; and the e4m3 wgmma with f16 sums (K1-mma's and K5's
            products) chained on two warpgroups, as QGMMA per clock per SM
-           and TOPS; and K6's color-pair step (3 subtracts, a multiply,
-           2 FMAs and a min) as FP32 instructions a clock per SM
+           and TOPS; the bf16 wgmma with f32 sums (m64n128k16, the bf16
+           form's product) chained on two and three warpgroups, as HGMMA
+           per clock per SM and TFLOPS; and K6's color-pair step (3
+           subtracts, a multiply, 2 FMAs and a min) as FP32 instructions a
+           clock per SM
   K1       the popcount K1 at Q=16384, N=2^21, t=5 (the K1 variants'
            shape, on operands made as chip_smoke's): 20 launches after
            K1-mma's two forms, as chip_smoke times them, and 100 alone,
@@ -312,6 +316,67 @@ __global__ void __launch_bounds__(128 * WGS, 1) wgmma_f16_probe(
     tb[0] = c0; tb[1] = clock64(); tb[2] = g0; tb[3] = globaltimer();
   }
 }
+// the bf16 wgmma with f32 sums (K1-mma's bf16 form): m64n128k16, +-1
+// operands (0x3F80, 0xBF80) in the same layout, WGS warpgroups a block,
+// one block an SM, each a chain of two products a group on its own 64
+// f32 sums, one group in flight while the next is issued
+__device__ __forceinline__ void wgmma128_bf16(float (&d)[64],
+                                              const unsigned (&a)[4],
+                                              unsigned long long desc) {
+#define F8(i)                                                              \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+#undef F8
+}
+template <int WGS>
+__global__ void __launch_bounds__(128 * WGS, 1) wgmma_bf16_probe(
+    unsigned* out, unsigned long long* times, int iters) {
+  __shared__ __align__(1024) uint4 b[256 * 64 / 16];
+  const unsigned long long c0 = clock64(), g0 = globaltimer();
+  for (int i = threadIdx.x; i < 256 * 64 / 16; i += blockDim.x)
+    b[i] = make_uint4(0x3F80BF80u, 0xBF803F80u, 0x3F803F80u, 0xBF80BF80u);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+  const unsigned base = static_cast<unsigned>(__cvta_generic_to_shared(b));
+  // K-major, no swizzle: LBO 128 bytes, SBO 512 (8 columns of 64 bytes)
+  const unsigned long long desc =
+      ((base & 0x3FFFF) >> 4) | (8ull << 16) | (32ull << 32);
+  const unsigned a[4] = {0x3F80BF80u ^ ((threadIdx.x & 1) << 15),
+                         0xBF803F80u, 0x3F803F80u, 0xBF80BF80u};
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+#pragma unroll 1
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+    wgmma128_bf16(acc, a, desc);
+    wgmma128_bf16(acc, a, desc + 16);  // the next k16 step, 256 bytes on
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sum += acc[i];
+  if (sum == 1.2345f) out[0] = 1;
+  if (threadIdx.x == 0) {
+    unsigned long long* tb = times + 4 * blockIdx.x;
+    tb[0] = c0; tb[1] = clock64(); tb[2] = g0; tb[3] = globaltimer();
+  }
+}
 // K6's color-pair step (color_scores.cu): 3 subtracts, a multiply, 2
 // FMAs and a min, on CHAINS independent minima a thread
 __global__ void __launch_bounds__(256) k6_step_probe(
@@ -369,6 +434,10 @@ extern "C" int cbird_probe(int op, void* out, void* times, int blocks,
     wgmma_probe<2, true><<<blocks, 256, 0, s>>>(o, t, iters);
   else if (op == 8)
     wgmma_f16_probe<2><<<blocks, 256, 0, s>>>(o, t, iters);
+  else if (op == 10)
+    wgmma_bf16_probe<2><<<blocks, 256, 0, s>>>(o, t, iters);
+  else if (op == 11)
+    wgmma_bf16_probe<3><<<blocks, 384, 0, s>>>(o, t, iters);
   else
     k6_step_probe<<<blocks, 256, 0, s>>>(o, t, iters, d);
   return (int)cudaGetLastError();
@@ -688,6 +757,27 @@ def main() -> int:
             ms * 1e-3 * sms * clk["clock64_mhz"]["median"] * 1e6),
         "e4m3_f16_tops": n * 64 * 256 * 32 * 2 / (ms * 1e-3) / 1e12,
         "loop_opcodes": body["opcodes"]}), flush=True)
+
+    # the bf16 wgmma with f32 sums on two and three warpgroups (K1-mma's
+    # bf16 form): HGMMA a clock per SM, and its TFLOPS against the
+    # table's 989 for bf16
+    for op, wgs in ((10, 2), (11, 3)):
+        iters = 1 << 13
+        ms, clk = timed_ms(torch, lambda: pr.run(op, iters, sms), 5)
+        clk["clock64_mhz"] = pr.clock64_mhz()
+        n = sms * wgs * iters * 2
+        fn = next(f for f in sass if "wgmma_bf16_probe" in f
+                  and f"ILi{wgs}EE" in f)
+        body = max(sass[fn], key=lambda lp: lp["instructions"],
+                   default={"opcodes": {}})
+        print(json.dumps({
+            "probe": f"wgmma_bf16_f32_m64n128k16_chained_{wgs}wg", "ms": ms,
+            "clock": clk,
+            "HGMMA_per_clk_sm_at_max": n / (ms * 1e-3 * sms * max_mhz * 1e6),
+            "HGMMA_per_clk_sm_at_clock64": n / (
+                ms * 1e-3 * sms * clk["clock64_mhz"]["median"] * 1e6),
+            "bf16_tflops": n * 64 * 128 * 16 * 2 / (ms * 1e-3) / 1e12,
+            "loop_opcodes": body["opcodes"]}), flush=True)
 
     # K6's color-pair step (FP32 subtracts, a multiply, FMAs and a min):
     # the FP32 instructions it sustains a clock per SM, and the loop's

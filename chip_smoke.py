@@ -12,13 +12,15 @@ Phases, each printed on its own line (pass/fail, numbers, wall ms, card):
            once
   kernels  each kernel against its plain PyTorch twin on the card, exact
            equality, at the main path's shapes; both timed (CUDA events);
-           the tensor-core count (K1-mma, wgmma and bf16) also against
-           the popcount K1, and the three timed at the K1 variants'
-           shapes, the triangle's tile and the 1024-needle gate's; its
-           masked form (K2-mma) against the plain twin and the popcount
-           K2 on diagonal tiles (the diagonal inside a step, on a step
-           edge, past and below the tile, 64-bit bases, a ragged needle
-           batch), timed beside the popcount K2; both also at the wgmma
+           the tensor-core count (K1-mma: one wgmma kernel template,
+           e4m3 and bf16 operands) also against the popcount K1, and the
+           three timed at the K1 variants' shapes, the triangle's tile
+           and the 1024-needle gate's, beside a bf16 torch.mm of the +-1
+           product (the bf16 form's yardstick); its masked form (K2-mma)
+           against the plain twin and the popcount K2 on diagonal tiles
+           (the diagonal inside a step, on a step edge, past and below
+           the tile, 64-bit bases, a ragged needle batch), timed beside
+           the popcount K2; both, in both operand types, also at the
            kernel's tile edges (EDGE_Q, EDGE_N, EDGE_D, every t of K2_T);
            K3-run (the run tiles) also at the cluster shape (the ~465 run
            tiles of a 65,536-row near-duplicate cluster, checked against
@@ -232,15 +234,19 @@ K2_T = (0, 5, 33, 63, 64, 65)
 K2_BASES = ((16384 + 100, 0), (32768, 0), (0, 65536), (147456, 0),
             ((1 << 33) + 5000, 1 << 33))
 # the wgmma kernel's tile edges (count_below_mma.cu: units of 192 rows,
-# three consumers of one m64 tile each, n-tiles of 256 columns, steps of
-# 1024, a ring of 2 steps and one of 4 packed steps): needle counts
-# around an m64 tile and one and two units' rows, column counts (one past
-# each ring's wrap) and diagonal offsets row_base - col_base (the m64,
-# n-tile and step edges, and past the tile), checked at every t of K2_T
+# three consumers of one m64 tile each; e4m3: n-tiles of 256 columns,
+# steps of 1024, a ring of 2 steps and one of 4 packed steps; bf16:
+# n-tiles of 128, steps of 512, rings of 3 and 2): needle counts around
+# an m64 tile and one and two units' rows, column counts (around each
+# form's n-tile and step, one past each ring's wrap) and diagonal offsets
+# row_base - col_base (the m64, n-tile and step edges, and past the
+# tile), checked in both operand types at every t of K2_T
 EDGE_Q = (1, 63, 65, 127, 129, 191, 193, 255, 257, 383, 385)
-EDGE_N = (1, 255, 257, 1023, 1025, 2049, 4097)
-EDGE_D = (0, 1, -1, 63, -63, 64, -64, 255, -255, 256, -256, 257, -257,
-          1023, -1023, 1024, -1024, 1025, -1025, 5000, -5000)
+EDGE_N = (1, 127, 129, 255, 257, 511, 513, 1023, 1025, 1537, 2049,
+          4097)
+EDGE_D = (0, 1, -1, 63, -63, 64, -64, 127, -127, 128, -128, 255, -255,
+          256, -256, 257, -257, 511, -511, 512, -512, 513, -513, 1023,
+          -1023, 1024, -1024, 1025, -1025, 5000, -5000)
 # the video phase's collection and its plants
 VIDEOS, FRAMES, FRAME_STEP = 4096, 512, 12
 COPIES, COPY_LEN = 64, 200
@@ -782,10 +788,11 @@ class Smoke:
         out = {"mma_checked": f"Q={q} N={n} t={list(MMA_T)}",
                "mma_hits": hits}
         del hay, vd, nd
-        err["K2-mma"], out["K2-mma_checked"] = self.k2_mma_checks(rng)
+        k2_err, out["K2-mma_checked"] = self.k2_mma_checks(rng)
         edge_err, out["mma_edges_checked"] = self.mma_edge_checks(rng)
-        err["K1-mma"] = max(err["K1-mma"], edge_err["K1-mma"])
-        err["K2-mma"] = max(err["K2-mma"], edge_err["K2-mma"])
+        for key in ("K1-mma", "K2-mma", "K1-mma-bf16"):
+            err[key] = max(err.get(key, 0.0), k2_err.get(key, 0.0),
+                           edge_err[key])
         # timing operands: 2^21 rows, 1% tombstones, needles near stored rows
         n_max = max(s[1] for s in MMA_SHAPES)
         h64 = rng.integers(0, 2**64, size=n_max, dtype=np.uint64)
@@ -823,6 +830,14 @@ class Smoke:
         k2_plain_ms = self.event_ms(lambda: cm.count_below_mma_plain(
             *args, masked=True), 3)
         self.sm_clock()
+        # yardstick of the bf16 form (not the same function): the +-1
+        # bf16 product alone, 1024 needles x 2^20 rows
+        pm = (torch.randint(0, 2, (1024, 64), device=self.dev) * 2 - 1).to(
+            torch.bfloat16)
+        hm = (torch.randint(0, 2, (64, 1 << 20), device=self.dev) * 2 - 1).to(
+            torch.bfloat16)
+        mm_bf16_ms = self.event_ms(lambda: torch.mm(pm, hm), 5)
+        del pm, hm
 
         # bounds: mma_work; the popcount form's: 2 POPC a pair
         mma_work = self.mma_work
@@ -857,6 +872,8 @@ class Smoke:
         self.bound(self.kernels["K2-mma"], "bound_ms", "bound_by",
                    **mma_work(tq, tn, TC_INT8_OPS_PER_S,
                               tq * tn - tq * (tq + 1) // 2))
+        self.kernels["K1-mma-bf16"]["mm_bf16_yardstick_ms"] = mm_bf16_ms
+        out["mm_bf16_1024x64x2^20_ms"] = round(mm_bf16_ms, 4)
         out["K2-mma_ms_at"] = ms_at
         out["K1-mma_plain_ms"] = round(plain_ms, 4)
         out["K2-mma_plain_ms"] = round(k2_plain_ms, 4)
@@ -866,13 +883,14 @@ class Smoke:
 
     def mma_edge_checks(self, rng):
         """K1-mma at every Q of EDGE_Q x N of EDGE_N and K2-mma at every
-        offset of EDGE_D (Q 65 and 257, N 1025 and 4097, 32- and 64-bit
-        ids), t in K2_T, each bit for bit against the plain twin and the
-        popcount K1 / K2.  The haystack: 8192 rows, a third of them copies
-        of a row 1-300 before with 0-4 bits flipped (near pairs on both
-        sides of any diagonal), 1% tombstones and an all-invalid slot of
-        1024 columns; the unmasked columns start on a 16-byte boundary and
-        off it.
+        offset of EDGE_D (Q 65 and 257, N 513, 1025 and 4097, 32- and
+        64-bit ids), t in K2_T, in both operand types, each bit for bit
+        against the plain twin and the popcount K1 / K2 (the bf16 form's
+        masked errors under K1-mma-bf16).  The haystack: 8192 rows, a
+        third of them copies of a row 1-300 before with 0-4 bits flipped
+        (near pairs on both sides of any diagonal), 1% tombstones and an
+        all-invalid slot of 1024 columns; the unmasked columns start on a
+        16-byte boundary and off it.
         @return ({kernel: max abs err}, what was checked)"""
         torch = self.torch
         from cbird_tpu_torch.ops import count_below as cb
@@ -888,48 +906,56 @@ class Smoke:
         hay = torch.from_numpy(h64.view(np.int64)).to(self.dev)
         vd = torch.from_numpy(valid).to(self.dev)
         nd = hay[5000:5000 + max(EDGE_Q)] ^ 0x11
-        err = {"K1-mma": 0.0, "K2-mma": 0.0}
-        hits, calls = {"K1-mma": 0, "K2-mma": 0}, 0
-        for c0 in (1024, 1025):
-            for q in EDGE_Q:
-                for nn in EDGE_N:
-                    args = (nd[:q], hay[c0:c0 + nn], vd[c0:c0 + nn])
-                    for t in K2_T:
-                        got = cm.count_below_mma(*args, t)
-                        torch.cuda.synchronize()
-                        what = f"K1-mma edge c0={c0} q={q} n={nn} t={t}"
-                        err["K1-mma"] = max(
-                            err["K1-mma"],
-                            self.same(got, cm.count_below_mma_plain(*args, t),
-                                      what),
-                            self.same(got, cb.count_below(*args, t), what))
-                        hits["K1-mma"] += int(got.sum())
-                        calls += 1
-        s = 3000
-        for d in EDGE_D:
-            for q in (65, 257):
-                for nn in (1025, 4097):
-                    # rows at ids s + d, columns at s, so that the
-                    # diagonal's offset is d; the rows' hashes from the
-                    # same ids (clamped into the store past the tile)
-                    r = min(max(s + d, 0), n - q)
-                    args = (hay[r:r + q], hay[s:s + nn], vd[s:s + nn])
-                    for base in (0, 1 << 33):
-                        kw = dict(masked=True, row_base=base + s + d,
-                                  col_base=base + s)
+        err = {"K1-mma": 0.0, "K2-mma": 0.0, "K1-mma-bf16": 0.0}
+        hits, calls = {"K1-mma": 0, "K2-mma": 0, "K1-mma-bf16": 0,
+                       "K2-mma-bf16": 0}, 0
+        for bf16 in (False, True):
+            k1 = "K1-mma-bf16" if bf16 else "K1-mma"
+            k2 = "K1-mma-bf16" if bf16 else "K2-mma"
+            for c0 in (1024, 1025):
+                for q in EDGE_Q:
+                    for nn in EDGE_N:
+                        args = (nd[:q], hay[c0:c0 + nn], vd[c0:c0 + nn])
                         for t in K2_T:
-                            got = cm.count_below_mma(*args, t, **kw)
+                            got = cm.count_below_mma(*args, t, bf16=bf16)
                             torch.cuda.synchronize()
-                            what = (f"K2-mma edge d={d} q={q} n={nn} "
-                                    f"base={base} t={t}")
-                            err["K2-mma"] = max(
-                                err["K2-mma"],
+                            what = f"{k1} edge c0={c0} q={q} n={nn} t={t}"
+                            err[k1] = max(
+                                err[k1],
                                 self.same(got, cm.count_below_mma_plain(
-                                    *args, t, **kw), what),
-                                self.same(got, cb.count_below(*args, t, **kw),
+                                    *args, t), what),
+                                self.same(got, cb.count_below(*args, t),
                                           what))
-                            hits["K2-mma"] += int(got.sum())
+                            hits[k1] += int(got.sum())
                             calls += 1
+            s = 3000
+            for d in EDGE_D:
+                for q in (65, 257):
+                    for nn in (513, 1025, 4097):
+                        # rows at ids s + d, columns at s, so that the
+                        # diagonal's offset is d; the rows' hashes from the
+                        # same ids (clamped into the store past the tile)
+                        r = min(max(s + d, 0), n - q)
+                        args = (hay[r:r + q], hay[s:s + nn], vd[s:s + nn])
+                        for base in (0, 1 << 33):
+                            kw = dict(masked=True, row_base=base + s + d,
+                                      col_base=base + s)
+                            for t in K2_T:
+                                got = cm.count_below_mma(*args, t, bf16=bf16,
+                                                         **kw)
+                                torch.cuda.synchronize()
+                                what = (f"K2-mma{'-bf16' if bf16 else ''} "
+                                        f"edge d={d} q={q} n={nn} "
+                                        f"base={base} t={t}")
+                                err[k2] = max(
+                                    err[k2],
+                                    self.same(got, cm.count_below_mma_plain(
+                                        *args, t, **kw), what),
+                                    self.same(got, cb.count_below(
+                                        *args, t, **kw), what))
+                                hits["K2-mma-bf16" if bf16 else "K2-mma"] += \
+                                    int(got.sum())
+                                calls += 1
         if not all(hits.values()):
             raise AssertionError(f"mma edge checks: no hit ({hits})")
         return err, {"Q": list(EDGE_Q), "N": list(EDGE_N),
@@ -937,12 +963,12 @@ class Smoke:
                      "launches": calls, "hits": hits}
 
     def k2_mma_checks(self, rng):
-        """K2-mma against its plain twin and the popcount K2 on a ragged
-        16381 x 65536 diagonal tile at each of K2_BASES and K2_T: 2^18 random
-        rows, 1% tombstones, a quarter of the rows copies of a row 1-300
-        rows before them with 0-4 bits flipped, so near pairs lie on both
-        sides of the diagonal.
-        @return (max abs err, what was checked)"""
+        """K2-mma, in both operand types, against its plain twin and the
+        popcount K2 on a ragged 16381 x 65536 diagonal tile at each of
+        K2_BASES and K2_T: 2^18 random rows, 1% tombstones, a quarter of the
+        rows copies of a row 1-300 rows before them with 0-4 bits flipped,
+        so near pairs lie on both sides of the diagonal.
+        @return ({kernel: max abs err}, what was checked)"""
         torch = self.torch
         from cbird_tpu_torch.ops import count_below as cb
         from cbird_tpu_torch.ops import count_below_mma as cm
@@ -954,19 +980,22 @@ class Smoke:
         h64[dup] = self.flip_bits(h64[src], rng.integers(0, 5, len(dup)), rng)
         hay = torch.from_numpy(h64.view(np.int64)).to(self.dev)
         vd = torch.from_numpy(rng.random(n) > 0.01).to(self.dev)
-        err, hits = 0.0, {}
+        err, hits = {"K2-mma": 0.0, "K1-mma-bf16": 0.0}, {}
         for rb, c0 in K2_BASES:
             # operands at the bases' offsets; at 64-bit ids, 5000 rows apart
             r, c = (rb, c0) if rb < n else (5000, 0)
             args = (hay[r:r + rows], hay[c:c + cols], vd[c:c + cols])
             kw = dict(masked=True, row_base=rb, col_base=c0)
             for t in K2_T:
-                got = cm.count_below_mma(*args, t, **kw)
-                torch.cuda.synchronize()
-                what = f"K2-mma row_base={rb} col_base={c0} t={t}"
-                err = max(err, self.same(got, cm.count_below_mma_plain(
-                    *args, t, **kw), what), self.same(got, cb.count_below(
-                        *args, t, **kw), what))
+                want = cm.count_below_mma_plain(*args, t, **kw)
+                pop = cb.count_below(*args, t, **kw)
+                for key, bf16 in (("K2-mma", False), ("K1-mma-bf16", True)):
+                    got = cm.count_below_mma(*args, t, bf16=bf16, **kw)
+                    torch.cuda.synchronize()
+                    what = (f"{key} masked row_base={rb} col_base={c0} "
+                            f"t={t}")
+                    err[key] = max(err[key], self.same(got, want, what),
+                                   self.same(got, pop, what))
                 hits[f"{rb}/{c0}/t{t}"] = int(got.sum())
         if not any(v for k, v in hits.items() if k.endswith("/t5")):
             raise AssertionError("K2-mma checks: no pair under t=5")

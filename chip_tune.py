@@ -110,6 +110,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 
@@ -144,207 +145,133 @@ def k3_edits(v) -> tuple:
     return edits + (() if v[3] else L1_EDITS)
 
 
-# K1-mma's forms, as edits of its source (the first is the source as it
-# is).  An edit is (old, new), or ((begin, end), new) to replace the text
-# from begin up to end.
+# K1-mma's forms, as edits of its source with its headers inlined (the
+# first form of each operand type is the source as it is).  An edit is
+# (old, new), or ((begin, end), new) to replace the text from begin up to
+# end.  Both types share the kernel template, so an edit of shared code
+# changes both types' kernels: each form is checked and timed in the
+# types it names (MMA_FORMS: form -> (edits, types)), and the other
+# type's kernel in its library need only compile.
+E4M3_SHAPE = dict(NCONS=3, WN=256, SUB=1024, STAGES=2, RAW_STAGES=4)
+BF16_SHAPE = dict(NCONS=3, WN=128, SUB=512, STAGES=3, RAW_STAGES=2)
+
+
+def shape_text(s: dict) -> str:
+    """A traits struct's shape constants as the source writes them."""
+    return (f"  static constexpr int NCONS = {s['NCONS']}, WN = {s['WN']}, "
+            f"SUB = {s['SUB']}, STAGES = {s['STAGES']};\n"
+            f"  static constexpr int RAW_STAGES = {s['RAW_STAGES']};")
+
+
+def shape(bf16: bool = False, **kw) -> tuple:
+    """The edit that gives one type's traits other shape constants."""
+    base = BF16_SHAPE if bf16 else E4M3_SHAPE
+    return ((shape_text(base), shape_text({**base, **kw})),)
+
+
 MMA_SOURCE = ("e4m3, 3 consumers, n256, steps of 1024, ring 2, raw ring 4, "
               "bias lane")
-CONS2 = ("constexpr int NCONS = 3;", "constexpr int NCONS = 2;")
+BF16_SOURCE = ("bf16: 3 consumers, n128, steps of 512, ring 3, raw ring 2, "
+               "bias step, LEA.HI count")
+UNDEF = "#undef D8"  # sm90.cuh: a new product goes before it
 
-
-def steps(sub: int, ring: int) -> tuple:
-    """Steps of ``sub`` columns in a ring of ``ring`` slots."""
-    return (("constexpr int SUB = 1024;", f"constexpr int SUB = {sub};"),
-            ("constexpr int STAGES = 2;", f"constexpr int STAGES = {ring};"))
-
-
-# n-tiles of 128 columns: the m64n128k32 product
-N128 = (("constexpr int WN = 256;", "constexpr int WN = 128;"),
-        ("#undef D8", r"""template <int SCALE_D>
+# e4m3 n-tiles of 128 columns: the m64n128k32 product
+N128 = (*shape(WN=128), (UNDEF, r"""template <int SCALE_D>
 __device__ __forceinline__ void mma_e4m3(int (&d)[32], const uint32_t (&a)[4],
                                          uint64_t desc) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.f16.e4m3.e4m3 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, "
+      "wgmma.mma_async.sync.aligned.m64n128k32.f16.e4m3.e4m3 {" REGS32 "}, "
       "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
       "}\n"
       : D8(0), D8(8), D8(16), D8(24)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(SCALE_D));
 }
-#undef D8"""))
+""" + UNDEF))
 
 # int8 +-1 operands, s32 sums (128 registers an n256 tile, so two
 # consumers), a hit the sum's sign bit added by one shift-and-add
 # (LEA.HI), in four partial sums a row
 INT8 = (
-    ("constexpr int NACC = WN / 4;", "constexpr int NACC = WN / 2;"),
+    ("  static constexpr int NACC = WN / 4;     // f16 sums, two a register",
+     "  static constexpr int NACC = WN / 2;     // s32 sums"),
     ("  return (x & 0x01010101u) * 0x80u + 0x38383838u;",
      "  return (x & 0x01010101u) * 0xFEu + 0x01010101u;"),
-    ("  if (!counted) return 0x7Eu;\n"
-     "  const int b = 64 - 2 * t;\n"
-     "  const uint32_t sign = b < 0 ? 0x80u : 0u;\n"
-     "  const int a = b < 0 ? -b : b;\n"
-     "  return (e4m3(a & ~15) | sign) | ((e4m3(a & 15) | sign) << 8);",
-     "  return counted ? static_cast<uint32_t>(64 - 2 * t) & 0xFFu : 0x7F7Fu;"),
-    ("a[2][rr] = qd == 0 ? 0x3838u : 0u;", "a[2][rr] = qd == 0 ? 0x0101u : 0u;"),
-    ("#undef D8", r"""template <int SCALE_D>
+    ("    if (!counted) return 0x7Eu;\n"
+     "    const int b = 64 - 2 * t;\n"
+     "    const uint32_t sign = b < 0 ? 0x80u : 0u;\n"
+     "    const int a = b < 0 ? -b : b;\n"
+     "    return (e4m3(a & ~15) | sign) | ((e4m3(a & 15) | sign) << 8);",
+     "    return counted ? static_cast<uint32_t>(64 - 2 * t) & 0xFFu : "
+     "0x7F7Fu;"),
+    ("A_BIAS = 0x3838u;", "A_BIAS = 0x0101u;"),
+    ("    mma_e4m3<SCALE_D>(d, a, desc);", "    mma_s8<SCALE_D>(d, a, desc);"),
+    (UNDEF, r"""template <int SCALE_D>
 __device__ __forceinline__ void mma_s8(int (&d)[128], const uint32_t (&a)[4],
                                       uint64_t desc) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
-      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
-      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
-      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "
-      "%122, %123, %124, %125, %126, %127}, "
-      "{%128, %129, %130, %131}, %132, p;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {" REGS64 ", "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, "
+      "%78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "
+      "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, {%128, %129, %130, %131}, %132, p;\n"
       "}\n"
       : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56),
         D8(64), D8(72), D8(80), D8(88), D8(96), D8(104), D8(112), D8(120)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(SCALE_D));
 }
-#undef D8"""),
-    ("        mma_e4m3<0>(acc, a[2], b_desc(tile + 4 * 128, 0));\n"
-     "        mma_e4m3<1>(acc, a[0], b_desc(tile));\n"
-     "        mma_e4m3<1>(acc, a[1], b_desc(tile + 256));",
-     "        mma_s8<0>(acc, a[2], b_desc(tile + 4 * 128, 0));\n"
-     "        mma_s8<1>(acc, a[0], b_desc(tile));\n"
-     "        mma_s8<1>(acc, a[1], b_desc(tile + 256));"),
+""" + UNDEF),
     # acc[4k + e] is row g + 8 (e >> 1), column 8k + 2qd + (e & 1)
-    (("template <bool MASK, int N>\n"
-      "__device__ __forceinline__ void count_rows(", "// mode 0: the tile"),
-     r"""template <bool MASK, int N>
-__device__ __forceinline__ void count_rows(const int (&acc)[N], int dm,
-                                           int thr, int (&cnt)[2]) {
+    (("  template <bool MASK>\n"
+      "  static __device__ __forceinline__ void count_rows(",
+      "};\n\n// bf16 +-1"), r"""  template <bool MASK>
+  static __device__ __forceinline__ void count_rows(const Acc (&acc)[NACC],
+                                                    int dm, int thr,
+                                                    int (&cnt)[2]) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    int part[4] = {0, 0, 0, 0};
+    for (int r = 0; r < 2; ++r) {
+      int part[4] = {0, 0, 0, 0};
 #pragma unroll
-    for (int k = 0; k < N / 4; ++k)
+      for (int k = 0; k < NACC / 4; ++k)
 #pragma unroll
-      for (int e1 = 0; e1 < 2; ++e1)
-        if (!MASK || 8 * k + e1 - 8 * r + thr > dm)
-          part[(2 * k + e1) & 3] += static_cast<int>(
-              static_cast<uint32_t>(acc[4 * k + 2 * r + e1]) >> 31);
-    cnt[r] += part[0] + part[1] + part[2] + part[3];
+        for (int e1 = 0; e1 < 2; ++e1)
+          if (!MASK || 8 * k + e1 - 8 * r + thr > dm)
+            part[(2 * k + e1) & 3] += static_cast<int>(
+                static_cast<uint32_t>(acc[4 * k + 2 * r + e1]) >> 31);
+      cnt[r] += part[0] + part[1] + part[2] + part[3];
+    }
   }
-}
-
 """))
-
-# the threshold as each column's f16 limit 2t - 64 (-1024: never) in a
-# slot of its own, applied at the count (lim - (-dot) saturated), K = 64
-LIMITS = (
-    ("constexpr int GROUP = 8 * 16 * 5;", "constexpr int GROUP = 8 * 16 * 4;"),
-    ("constexpr int SMEM = 1024 + STAGES * B_BYTES +",
-     "constexpr int SMEM = 1024 + STAGES * (B_BYTES + 2 * SUB) +"),
-    ("  uint32_t raw;          // RAW_STAGES barriers",
-     "  uint32_t raw;          // RAW_STAGES barriers\n"
-     "  uint32_t lim;          // STAGES x 2 SUB: the limits, lim_at order"),
-    ("  const uint32_t bars = r.raw_v + RAW_STAGES * RAW_V;",
-     "  r.lim = r.raw_v + RAW_STAGES * RAW_V;\n"
-     "  const uint32_t bars = r.lim + STAGES * 2 * SUB;"),
-    ("__device__ __forceinline__ uint32_t lds8(uint32_t addr) {", r"""__device__ __forceinline__ void sts16(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.b16 [%0], %1;" ::"r"(addr),
-               "h"(static_cast<unsigned short>(v)) : "memory");
-}
-__device__ __forceinline__ int4 lds128(uint32_t addr) {
-  int4 v;
-  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr)
-               : "memory");
-  return v;
-}
-// f16 bits of an integer |v| <= 1024, exact
-__device__ __forceinline__ uint32_t f16_int(int v) {
-  if (v == 0) return 0;
-  const uint32_t sign = v < 0 ? 0x8000u : 0u;
-  const int a = v < 0 ? -v : v;
-  const int e = 31 - __clz(a);
-  return sign | static_cast<uint32_t>((e + 15) << 10) |
-         static_cast<uint32_t>(((a << 10) >> e) & 0x3FF);
-}
-// the byte offset of column j's limit in a slot: the words of columns
-// 8k + 2qd and + 1 for four n8 blocks k share 16 bytes, so a consumer
-// thread reads four in one load
-__device__ __forceinline__ uint32_t lim_at(int j) {
-  const int k = j >> 3, qd = (j >> 1) & 3;
-  return static_cast<uint32_t>(((k >> 2) * 4 + qd) * 16 + (k & 3) * 4 +
-                               (j & 1) * 2);
-}
-__device__ __forceinline__ uint32_t lds8(uint32_t addr) {"""),
-    ("  const uint32_t fold = bias_word(t, true), never = bias_word(t, false);",
-     "  const uint32_t fold = f16_int(2 * t - 64), never = f16_int(-1024);"),
-    ("      sts128(col + 4 * 128, ok ? fold : never, 0, 0, 0);",
-     "      sts16(r.lim + slot * 2 * SUB + lim_at(j), ok ? fold : never);"),
-    ("__device__ __forceinline__ void count_rows(const int (&acc)[N], int dm,",
-     "__device__ __forceinline__ void count_rows(const int (&acc)[N],\n"
-     "                                           const uint32_t (&lw)[N / 2],"
-     " int dm,"),
-    ('"r"(0u), "r"(acc[2 * k + r])', '"r"(lw[k]), "r"(acc[2 * k + r])'),
-    (("template <int N>\n"
-      "__device__ __forceinline__ void count_tile(", "template <bool MASKED>"),
-     r"""template <int N>
-__device__ __forceinline__ void count_tile(int (&acc)[N], int mode, int dm,
-                                           int thr, uint32_t lim,
-                                           int (&cnt)[2]) {
-  acc_fence(acc);
-  if (!mode) return;
-  uint32_t lw[N / 2];
-#pragma unroll
-  for (int k = 0; k < N / 2; k += 4) {
-    const int4 v = lds128(lim + 16 * k);
-    lw[k] = v.x; lw[k + 1] = v.y; lw[k + 2] = v.z; lw[k + 3] = v.w;
-  }
-  if (mode == 2)
-    count_rows<true>(acc, lw, dm, thr, cnt);
-  else
-    count_rows<false>(acc, lw, dm, thr, cnt);
-}
-
-"""),
-    ("        mma_e4m3<0>(acc, a[2], b_desc(tile + 4 * 128, 0));\n"
-     "        mma_e4m3<1>(acc, a[0], b_desc(tile));",
-     "        mma_e4m3<0>(acc, a[0], b_desc(tile));"),
-    ("for (int e = 0; e < 12; ++e) asm volatile",  # no bias step's A
-     "for (int e = 0; e < 8; ++e) asm volatile"),
-    ("        count_tile(acc, mode, dm, thr, cnt);",
-     "        count_tile(acc, mode, dm, thr,\n"
-     "                   r.lim + slot * 2 * SUB + (nt * (WN / 32) * 4 + qd) * 16,"
-     "\n                   cnt);"),
-)
 
 # two m64 tiles a consumer: every product of a step's n-tile on both
 MT2 = (
-    ("constexpr int BQ = NCONS * 64;", "constexpr int BQ = NCONS * 128;"),
-    (("template <bool MASKED>\n__device__ __forceinline__ void consumer(",
-      "template <bool MASKED>\n__global__"), r"""template <bool MASKED>
+    ("  static constexpr int BQ = T::NCONS * 64;",
+     "  static constexpr int BQ = T::NCONS * 128;"),
+    (("template <class T, bool MASKED>\n"
+      "__device__ __forceinline__ void consumer(",
+      "template <class T, bool MASKED>\n__global__"), r"""template <class T, bool MASKED>
 __device__ __forceinline__ void consumer(
-    const Ring& r, Walk w, const unsigned long long* __restrict__ needles,
+    const Ring& r, Walk<T> w, const unsigned long long* __restrict__ needles,
     int q, int* __restrict__ out) {
+  typedef Shape<T> S;
+  constexpr int WN = T::WN, KS = T::KSTEPS;
   const int c = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0) - 1;
   const int tid = threadIdx.x & 127;
   const int wp = tid >> 5, lane = tid & 31, g = lane >> 2, qd = lane & 3;
   const int thr = 2 * qd - 16 * wp - g;
-  uint32_t a[2][3][4];
-  int acc[2][NACC];
-  bool more = w.unit<MASKED>();
+  uint32_t a[2][KS + 1][4];
+  typename T::Acc acc[2][T::NACC];
+  bool more = w.template unit<MASKED>();
   int i = 0;
   while (more) {
-    const int r0 = w.y * BQ + c * 128;
+    const int r0 = w.y * S::BQ + c * 128;
 #pragma unroll
     for (int m = 0; m < 2; ++m)
 #pragma unroll
@@ -352,23 +279,23 @@ __device__ __forceinline__ void consumer(
         const int row = r0 + 64 * m + 16 * wp + g + 8 * rr;
         const unsigned long long h = row < q ? ~needles[row] : 0ull;
 #pragma unroll
-        for (int s = 0; s < 2; ++s)
+        for (int s = 0; s < KS; ++s)
 #pragma unroll
           for (int hf = 0; hf < 2; ++hf)
-            a[m][s][2 * hf + rr] = pm1_word(h, 8 * s + 4 * hf + qd);
-        a[m][2][rr] = qd == 0 ? 0x3838u : 0u;
-        a[m][2][2 + rr] = 0u;
+            a[m][s][2 * hf + rr] = T::word(h, 8 * s + 4 * hf + qd);
+        a[m][KS][rr] = qd == 0 ? T::A_BIAS : 0u;
+        a[m][KS][2 + rr] = 0u;
       }
 #pragma unroll
-    for (int e = 0; e < 24; ++e)
-      asm volatile("" : "+r"(a[e / 12][(e >> 2) % 3][e & 3]));
+    for (int e = 0; e < 8 * (KS + 1); ++e)
+      asm volatile("" : "+r"(a[e / (4 * (KS + 1))][(e >> 2) % (KS + 1)][e & 3]));
     int cnt[2][2] = {{0, 0}, {0, 0}};
     do {
-      const int slot = i % STAGES;
-      bar_wait(r.full + 8 * slot, (i / STAGES) & 1);
-      const uint32_t sb = r.b + slot * B_BYTES;
+      const int slot = i % T::STAGES;
+      bar_wait(r.full + 8 * slot, (i / T::STAGES) & 1);
+      const uint32_t sb = r.b + slot * S::B_BYTES;
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
+      for (int nt = 0; nt < S::NT; ++nt) {
         int mode[2], dm[2];
 #pragma unroll
         for (int m = 0; m < 2; ++m) {
@@ -381,22 +308,25 @@ __device__ __forceinline__ void consumer(
         acc_fence(acc[0]);
         acc_fence(acc[1]);
         wgmma_fence();
-        const uint32_t tile = sb + nt * (WN / 8) * GROUP;
+        const uint32_t tile = sb + nt * (WN / 8) * S::GROUP;
 #pragma unroll
         for (int m = 0; m < 2; ++m) {
-          mma_e4m3<0>(acc[m], a[m][2], b_desc(tile + 4 * 128, 0));
-          mma_e4m3<1>(acc[m], a[m][0], b_desc(tile));
-          mma_e4m3<1>(acc[m], a[m][1], b_desc(tile + 256));
+          T::template mma<0>(acc[m], a[m][KS],
+                             b_desc(tile + KS * 256, 0, S::GROUP));
+#pragma unroll
+          for (int s = 0; s < KS; ++s)
+            T::template mma<1>(acc[m], a[m][s],
+                               b_desc(tile + s * 256, 128, S::GROUP));
         }
         wgmma_commit();
         wgmma_wait<0>();
 #pragma unroll
         for (int m = 0; m < 2; ++m)
-          count_tile(acc[m], mode[m], dm[m], thr, cnt[m]);
+          count_tile<T>(acc[m], mode[m], dm[m], thr, cnt[m]);
       }
       if (lane == 0) bar_arrive(r.empty + 8 * slot);
       ++i;
-      w.c0 += SUB;
+      w.c0 += T::SUB;
     } while (w.c0 < w.cend);
 #pragma unroll
     for (int m = 0; m < 2; ++m)
@@ -409,69 +339,232 @@ __device__ __forceinline__ void consumer(
         if (qd == 0 && row < q && v) atomicAdd(out + row, v);
       }
     w.u += gridDim.x;
-    more = w.unit<MASKED>();
+    more = w.template unit<MASKED>();
   }
 }
 
 """),
 )
 
-# a row's hits summed in f32 across tiles, converted once at the end:
-# exact only while a lane's part of a row's count stays under 2^24
+# e4m3: a row's hits summed in f32 across tiles, converted once at the
+# end: exact only while a lane's part of a row's count stays under 2^24
 F32_SUMS = (
-    (("    int v;\n", "  }\n}\n\n// mode 0"), r"""    float lo, hi;
-    asm("{\n.reg .f16 l, h;\nmov.b32 {l, h}, %2;\ncvt.f32.f16 %0, l;\n"
-        "cvt.f32.f16 %1, h;\n}" : "=f"(lo), "=f"(hi) : "r"(part[0]));
-    cnt[r] = __float_as_int(__int_as_float(cnt[r]) + lo + hi);
+    (("      int v;\n", "    }\n  }\n};\n\n// bf16 +-1"), r"""      float lo, hi;
+      asm("{\n.reg .f16 l, h;\nmov.b32 {l, h}, %2;\ncvt.f32.f16 %0, l;\n"
+          "cvt.f32.f16 %1, h;\n}" : "=f"(lo), "=f"(hi) : "r"(part[0]));
+      cnt[r] = __float_as_int(__int_as_float(cnt[r]) + lo + hi);
 """),
     ("      int v = cnt[rr];",
      "      int v = static_cast<int>(__int_as_float(cnt[rr]));"),
 )
 
+# bf16: each column's bias preloaded into the sums (scale-d 1 from the
+# first k step; K = 64, no bias step): the producer writes it as f32 in a
+# slot of its own, in the order a consumer thread loads four at a time
+PRELOAD = (
+    ("  static constexpr int GROUP = 8 * 16 * (CHUNKS + 1);",
+     "  static constexpr int GROUP = 8 * 16 * CHUNKS;"),
+    ("  static constexpr int SMEM = 1024 + T::STAGES * B_BYTES +",
+     "  static constexpr int SMEM = 1024 + T::STAGES * (B_BYTES + 4 * T::SUB) +"),
+    ("  uint32_t raw;          // RAW_STAGES barriers",
+     "  uint32_t raw;          // RAW_STAGES barriers\n"
+     "  uint32_t lim;          // STAGES x 4 SUB: the f32 biases"),
+    ("  const uint32_t bars = r.raw_v + RAW_STAGES * S::RAW_V;",
+     "  r.lim = r.raw_v + RAW_STAGES * S::RAW_V;\n"
+     "  const uint32_t bars = r.lim + STAGES * 4 * T::SUB;"),
+    ("// the bulk copies of a step's packed columns", r"""// the byte offset of column j's f32 bias in a slot: the words of columns
+// 8k + 2qd and + 1 for two n8 blocks k share 16 bytes
+__device__ __forceinline__ uint32_t lim_at(int j) {
+  const int k = j >> 3, qd = (j >> 1) & 3;
+  return static_cast<uint32_t>(
+      (((k >> 1) * 4 + qd) * 4 + (k & 1) * 2 + (j & 1)) * 4);
+}
+__device__ __forceinline__ void set_bits(int& d, uint32_t v) {
+  d = static_cast<int>(v);
+}
+__device__ __forceinline__ void set_bits(float& d, uint32_t v) {
+  d = __uint_as_float(v);
+}
+
+// the bulk copies of a step's packed columns"""),
+    ("  const uint32_t fold = T::bias_word(t, true), never = T::bias_word(t, false);",
+     "  const uint32_t fold = __float_as_uint(static_cast<float>(65 - 2 * t)),\n"
+     "                 never = __float_as_uint(65.f);"),
+    ("      sts128(col + S::CHUNKS * 128, ok ? fold : never, 0, 0, 0);",
+     "      sts32(r.lim + slot * 4 * SUB + lim_at(j), ok ? fold : never);"),
+    ("        acc_fence(acc);\n        wgmma_fence();",
+     r"""        acc_fence(acc);
+        const uint32_t lim = r.lim + slot * 4 * T::SUB + nt * WN * 4 + qd * 16;
+#pragma unroll
+        for (int m = 0; m < T::NACC / 8; ++m) {
+          uint32_t x, y, z, v4;
+          asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];"
+                       : "=r"(x), "=r"(y), "=r"(z), "=r"(v4)
+                       : "r"(lim + m * 64) : "memory");
+          set_bits(acc[8 * m], x);
+          set_bits(acc[8 * m + 1], y);
+          set_bits(acc[8 * m + 4], z);
+          set_bits(acc[8 * m + 5], v4);
+          acc[8 * m + 2] = acc[8 * m];
+          acc[8 * m + 3] = acc[8 * m + 1];
+          acc[8 * m + 6] = acc[8 * m + 4];
+          acc[8 * m + 7] = acc[8 * m + 5];
+        }
+        wgmma_fence();"""),
+    ("        T::template mma<0>(acc, a[KS], b_desc(tile + KS * 256, 0, S::GROUP));\n",
+     ""),
+)
+
+# bf16 count: every other pair's hit as -c saturated to 1 (FADD.SAT) and
+# summed in f32, on the FMA pipe; the rest by LEA.HI on the ALU pipe
+COUNT_FMA = (
+    ("      int part[4] = {0, 0, 0, 0};",
+     "      int part[4] = {0, 0, 0, 0};\n      float fpart[2] = {0.f, 0.f};"),
+    ("          part[(2 * k + e) & 3] += static_cast<int>(c >> 31);",
+     r"""          if (e) {
+            part[2 * (k & 1)] += static_cast<int>(c >> 31);
+          } else {
+            float hf;
+            asm("sub.sat.f32 %0, 0f00000000, %1;" : "=f"(hf)
+                : "f"(__uint_as_float(c)));
+            fpart[k & 1] += hf;
+          }"""),
+    ("      cnt[r] += (part[0] + part[1]) + (part[2] + part[3]);",
+     "      cnt[r] += (part[0] + part[2]) +\n"
+     "                static_cast<int>(fpart[0] + fpart[1]);"),
+)
+
+# bf16 count as e4m3's: two sums packed to f16x2 (exact: |c| <= 129),
+# -c saturated to 1 (HADD2.SAT), summed in f16 a tile
+COUNT_F16 = (
+    (("  // acc[4k + 2r + e] holds row g + 8r",
+      "};\n\n// the shapes a form gives the kernel"), r"""  template <bool MASK>
+  static __device__ __forceinline__ void count_rows(const Acc (&acc)[NACC],
+                                                    int dm, int thr,
+                                                    int (&cnt)[2]) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      uint32_t part[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int k = 0; k < NACC / 4; ++k) {
+        uint32_t h;
+        asm("cvt.rn.f16x2.f32 %0, %1, %2;" : "=r"(h)
+            : "f"(acc[4 * k + 2 * r + 1]), "f"(acc[4 * k + 2 * r]));
+        asm("sub.sat.f16x2 %0, %1, %2;" : "=r"(h) : "r"(0u), "r"(h));
+        if (MASK) {
+          const int off = 8 * k - 8 * r + thr;
+          h &= (off <= dm ? 0u : 0xFFFFu) | (off + 1 <= dm ? 0u : 0xFFFF0000u);
+        }
+        asm("add.f16x2 %0, %0, %1;" : "+r"(part[k & 3]) : "r"(h));
+      }
+      asm("add.f16x2 %0, %0, %1;" : "+r"(part[0]) : "r"(part[1]));
+      asm("add.f16x2 %0, %0, %1;" : "+r"(part[2]) : "r"(part[3]));
+      asm("add.f16x2 %0, %0, %1;" : "+r"(part[0]) : "r"(part[2]));
+      int v;
+      asm("{\n.reg .f16 l, h;\nmov.b32 {l, h}, %1;\nadd.f16 l, l, h;\n"
+          "cvt.rni.s32.f16 %0, l;\n}" : "=r"(v) : "r"(part[0]));
+      cnt[r] += v;
+    }
+  }
+"""),
+)
+
+# bf16 n-tiles of 64 columns: the m64n64k16 product (32 sums a thread)
+N64_BF16 = ((UNDEF, r"""template <int SCALE_D>
+__device__ __forceinline__ void mma_bf16(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" REGS32 "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : F8(0), F8(8), F8(16), F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(SCALE_D));
+}
+""" + UNDEF),)
+E4, B16, BOTH = ("e4m3",), ("bf16",), ("e4m3", "bf16")
 MMA_VARIANTS = {
-    MMA_SOURCE: (),
-    "row sums in f32 (exact to 2^24 a lane)": F32_SUMS,
-    "2 consumers": (CONS2,),
-    "2 consumers, 2 m64": (CONS2, *MT2),
-    "int8, s32 sums (LEA.HI count), 2 consumers": (*INT8, CONS2),
-    "limits at the count (K = 64)": LIMITS,
-    "raw ring 2": (("constexpr int RAW_STAGES = 4;",
-                    "constexpr int RAW_STAGES = 2;"),),
-    "steps of 768, ring 2": (("constexpr int SUB = 1024;",
-                              "constexpr int SUB = 768;"),),
-    "steps of 512, ring 2": steps(512, 2),
-    "steps of 512, ring 3": steps(512, 3),
-    "steps of 512, ring 4": steps(512, 4),
-    "steps of 256, ring 2": steps(256, 2),
-    "steps of 256, ring 3": steps(256, 3),
-    "steps of 256, ring 4": steps(256, 4),
-    "n128": N128,
-    "n128, 2 m64": (*N128, *MT2),
+    MMA_SOURCE: ((), E4),
+    "row sums in f32 (exact to 2^24 a lane)": (F32_SUMS, E4),
+    "2 consumers": (shape(NCONS=2), E4),
+    "2 consumers, 2 m64": ((*shape(NCONS=2), *MT2), E4),
+    "int8, s32 sums (LEA.HI count), 2 consumers": ((*INT8, *shape(NCONS=2)),
+                                                  E4),
+    "raw ring 2": (shape(RAW_STAGES=2), E4),
+    "steps of 768, ring 2": (shape(SUB=768), E4),
+    "steps of 512, ring 2": (shape(SUB=512), E4),
+    "steps of 512, ring 3": (shape(SUB=512, STAGES=3), E4),
+    "steps of 512, ring 4": (shape(SUB=512, STAGES=4), E4),
+    "steps of 256, ring 2": (shape(SUB=256), E4),
+    "steps of 256, ring 3": (shape(SUB=256, STAGES=3), E4),
+    "steps of 256, ring 4": (shape(SUB=256, STAGES=4), E4),
+    "n128": (N128, E4),
+    "n128, 2 m64": ((*N128, *MT2), E4),
+    BF16_SOURCE: ((), B16),
+    "bf16: 2 consumers, n256": (shape(True, NCONS=2, WN=256), B16),
+    "bf16: 2 consumers, n128": (shape(True, NCONS=2), B16),
+    "bf16: n64": ((*shape(True, WN=64), *N64_BF16), B16),
+    "bf16: ring 2, raw ring 4": (shape(True, STAGES=2, RAW_STAGES=4), B16),
+    "bf16: ring 2, raw ring 2": (shape(True, STAGES=2), B16),
+    "bf16: steps of 256, ring 2, raw ring 4": (
+        shape(True, SUB=256, STAGES=2, RAW_STAGES=4), B16),
+    "bf16: steps of 256, ring 4, raw ring 4": (
+        shape(True, SUB=256, STAGES=4, RAW_STAGES=4), B16),
+    "bf16: steps of 256, ring 6, raw ring 4": (
+        shape(True, SUB=256, STAGES=6, RAW_STAGES=4), B16),
+    "bf16: steps of 384, ring 4": (shape(True, SUB=384, STAGES=4), B16),
+    "bf16: 2 m64 a consumer, n64": ((*shape(True, WN=64), *N64_BF16, *MT2),
+                                    B16),
+    "bf16: preloaded sums (K = 64, no bias step)": (PRELOAD, B16),
+    "bf16: count, half by FADD.SAT (FMA pipe)": (COUNT_FMA, B16),
+    "bf16: count as f16x2 (HADD2.SAT)": (COUNT_F16, B16),
 }
 # forms that leave out a part of the work, to see what the time is made
-# of: their counts are wrong, so they are timed and not checked
+# of: their counts are wrong, so they are timed and not checked; each
+# edits the shared template, so both types time the same library
 NO_UNPACK = ("for (int half = 0; half < SUB / 128; ++half) {",
              "for (int half = 0; half < 0; ++half) {")
-NO_COUNT = ("  acc_fence(acc);\n  if (mode == 2)",  # one sum kept alive
+# every sum stays read (xor-folded, half a LOP3 a sum): with one sum read,
+# ptxas narrows the products to the columns read
+NO_COUNT = ("  acc_fence(acc);\n  if (mode == 2)",
             "  acc_fence(acc);\n  if (mode < 5) {\n"
-            "    cnt[0] += acc[0] & 1;\n    return;\n  }\n  if (mode == 2)")
-NO_MMA = ("        mma_e4m3<0>(acc, a[2], b_desc(tile + 4 * 128, 0));\n"
-          "        mma_e4m3<1>(acc, a[0], b_desc(tile));\n"
-          "        mma_e4m3<1>(acc, a[1], b_desc(tile + 256));\n", "")
+            "    uint32_t x = 0;\n"
+            "#pragma unroll\n"
+            "    for (int i = 0; i < T::NACC; ++i)\n"
+            "      x ^= reinterpret_cast<const uint32_t&>(acc[i]);\n"
+            "    cnt[0] += x & 1;\n    return;\n  }\n"
+            "  if (mode == 2)")
+NO_MMA = ("        T::template mma<0>(acc, a[KS], "
+          "b_desc(tile + KS * 256, 0, S::GROUP));\n"
+          "#pragma unroll\n"
+          "        for (int s = 0; s < KS; ++s)\n"
+          "          T::template mma<1>(acc, a[s], "
+          "b_desc(tile + s * 256, 128, S::GROUP));\n", "")
 NO_COPY = ("  bar_expect(bar, static_cast<uint32_t>((h1 - h0) + (v1 - v0)));\n"
-           "  bulk_load(r.raw_h + slot * RAW_H, reinterpret_cast<const void*>(h0),\n"
+           "  bulk_load(r.raw_h + slot * S::RAW_H, "
+           "reinterpret_cast<const void*>(h0),\n"
            "            static_cast<uint32_t>(h1 - h0), bar);\n"
-           "  bulk_load(r.raw_v + slot * RAW_V, reinterpret_cast<const void*>(v0),\n"
+           "  bulk_load(r.raw_v + slot * S::RAW_V, "
+           "reinterpret_cast<const void*>(v0),\n"
            "            static_cast<uint32_t>(v1 - v0), bar);",
            "  bar_arrive(bar);")
 MMA_DIAG = {
-    "diag: no unpack": (NO_UNPACK,),
-    "diag: no count": (NO_COUNT,),
-    "diag: no mma": (NO_MMA,),
-    "diag: ring only (no unpack, count, mma)": (NO_UNPACK, NO_COUNT, NO_MMA),
-    "diag: ring only, no copies": (NO_UNPACK, NO_COUNT, NO_MMA, NO_COPY),
+    "diag: no unpack": ((NO_UNPACK,), BOTH),
+    "diag: no count (every sum xor-folded)": ((NO_COUNT,), BOTH),
+    "diag: no mma": ((NO_MMA,), BOTH),
+    "diag: no unpack, no count": ((NO_UNPACK, NO_COUNT), BOTH),
+    "diag: ring only (no unpack, count, mma)": ((NO_UNPACK, NO_COUNT,
+                                                 NO_MMA), BOTH),
+    "diag: ring only, no copies": ((NO_UNPACK, NO_COUNT, NO_MMA, NO_COPY),
+                                   BOTH),
 }
 MMA_FORMS = {**MMA_VARIANTS, **MMA_DIAG}
+# a form that may fault goes last: a fault ends the process's CUDA context
+MMA_FORMS["bf16: 2 m64 a consumer, n64"] = MMA_FORMS.pop(
+    "bf16: 2 m64 a consumer, n64")
 
 # K5 (hamming_lanes_topk.cu)
 K5_SOURCE = "source: one list a row, the quad's threads in turn"
@@ -499,7 +592,7 @@ K5_VARIANTS = {
 K5_NO_EPILOGUE = ((("      // the common case: no sum of the warp's rows",
                     "      if (lane == 0) bar_arrive(r.empty + 8 * slot);"),
                    "      if (acc[0] == 0x7FFFFFFF) sts32(lst[0], 0);\n"),)
-K5_NO_MMA = ((("      mma_e4m3<0>(acc, a[0], b_desc(sb));",
+K5_NO_MMA = ((("      mma_e4m3<0>(acc, a[0], b_desc(sb, 128, GROUP));",
                "      wgmma_commit();"),
               "#pragma unroll\n      for (int e = 0; e < NACC; ++e) acc[e] = 0;\n"),)
 K5_NO_UNPACK = (("    for (int it = 0; it < SUB / 32; ++it) {",
@@ -587,18 +680,28 @@ K3RUN_OLD_FORM = f"commit {K3RUN_OLD}"
 PTXAS: dict = {}  # (source name, form) -> ptxas's registers and spills
 
 
-def build_variant(name: str, edits: tuple, src: str | None = None,
-                  ptxas: tuple | None = None) -> str:
-    """``csrc/<name>.cu`` (or ``src``) with each edit made in turn (its
-    text must occur): (old, new) replaces old; ((begin, end), new)
-    replaces the text from begin up to end.  Compiled as the package
-    compiles it, into ``build/tune/``; with ``ptxas`` set, ptxas's
-    registers and spills go to ``PTXAS[ptxas]``.
-    @return the library path"""
+def inline_headers(src: str) -> str:
+    """``src`` with each local header it includes (``#include "..."``, as
+    ``_build.sources`` finds them) replaced by its text."""
+    from cbird_tpu_torch import _build
+
+    def text(m):
+        with open(os.path.join(_build.CSRC, m.group(1))) as f:
+            return f.read().replace("#pragma once\n", "")
+    while _build._INCLUDE.search(src):
+        src = _build._INCLUDE.sub(text, src)
+    return src
+
+
+def edited_source(name: str, edits: tuple, src: str | None = None) -> str:
+    """``csrc/<name>.cu`` (or ``src``), its local headers inlined, with each
+    edit made in turn (its text must occur): (old, new) replaces old;
+    ((begin, end), new) replaces the text from begin up to end."""
     from cbird_tpu_torch import _build
     if src is None:
         with open(os.path.join(_build.CSRC, f"{name}.cu")) as f:
             src = f.read()
+    src = inline_headers(src)
     for old, new in edits:
         if isinstance(old, tuple):
             i = src.find(old[0])
@@ -609,19 +712,40 @@ def build_variant(name: str, edits: tuple, src: str | None = None,
         elif old not in src:
             raise RuntimeError(f"chip_tune: {old!r} not in {name}.cu")
         src = src.replace(old, new)
+    return src
+
+
+def build_variant(name: str, edits: tuple, src: str | None = None,
+                  ptxas: tuple | None = None) -> str:
+    """``edited_source(name, edits, src)`` compiled as the package compiles
+    it, into ``build/tune/``; with ``ptxas`` set, ptxas's registers and
+    spills go to ``PTXAS[ptxas]``.
+    @return the library path"""
+    from cbird_tpu_torch import _build
+    src = edited_source(name, edits, src)
     out = os.path.join(os.path.dirname(_build.BUILD_DIR), "tune")
     os.makedirs(out, exist_ok=True)
     stem = os.path.join(out, f"{name}-" + hashlib.sha256(
         src.encode()).hexdigest()[:16])
-    with open(stem + ".cu", "w") as f:
+    # two forms may give the same text: each builds from and into files of
+    # its own, then moves its library into place
+    tmp = f"{stem}.{os.getpid()}.{threading.get_ident()}"
+    with open(tmp + ".cu", "w") as f:
         f.write(src)
     flags = [*_build.NVCC_FLAGS, "-Xptxas", "-v"] if ptxas else \
         _build.NVCC_FLAGS
-    proc = subprocess.run([_build.nvcc(), *flags, "-o", stem + ".so",
-                           stem + ".cu"],
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed for {stem}.cu:\n{proc.stderr}")
+    try:
+        proc = subprocess.run([_build.nvcc(), *flags, "-o", tmp + ".so",
+                               tmp + ".cu"],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {stem}.cu:\n{proc.stderr}")
+        os.replace(tmp + ".so", stem + ".so")
+        os.replace(tmp + ".cu", stem + ".cu")
+    finally:
+        for ext in (".so", ".cu"):
+            if os.path.exists(tmp + ext):
+                os.unlink(tmp + ext)
     if ptxas:
         PTXAS[ptxas] = [ln.split(":", 1)[-1].strip() for ln in
                         proc.stderr.splitlines()
@@ -677,8 +801,10 @@ def scan_launch(torch, lib, nd, h, v, k: int, bound: int):
 
 def main() -> int:
     import torch
-    parts = sys.argv[1:] or ["k4", "k3", "k3run", "mma", "k5", "k6", "fma"]
-    if not set(parts) <= {"k4", "k3", "k3run", "mma", "k5", "k6", "fma"}:
+    parts = sys.argv[1:] or ["k4", "k3", "k3run", "mma", "bf16", "k5", "k6",
+                             "fma"]
+    if not set(parts) <= {"k4", "k3", "k3run", "mma", "bf16", "k5", "k6",
+                          "fma"}:
         print(f"chip_tune: unknown parts {parts}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -697,13 +823,14 @@ def main() -> int:
             + [("band_count", v) for v in K3_VARIANTS] * ("k3" in parts)
             + [("run_tiles", v) for v in [*K3RUN_FORMS, K3RUN_OLD_FORM]]
             * ("k3run" in parts)
-            + [("count_below_mma", v) for v in MMA_FORMS]
-            * ("mma" in parts)
+            + [("count_below_mma", v) for v, (_, types) in MMA_FORMS.items()
+               if ("e4m3" in types and "mma" in parts)
+               or ("bf16" in types and "bf16" in parts)]
             + [("hamming_lanes_topk", v) for v in K5_FORMS] * ("k5" in parts)
             + [("color_scores", v) for v in [*K6_VARIANTS, K6_OLD_FORM]]
             * ("k6" in parts))
     edits = {"hamming_topk": k4_edits, "band_count": k3_edits,
-             "count_below_mma": MMA_FORMS.get,
+             "count_below_mma": lambda v: MMA_FORMS[v][0],
              "hamming_lanes_topk": K5_FORMS.get,
              "color_scores": lambda v: K6_VARIANTS.get(v, ())}
 
@@ -718,7 +845,9 @@ def main() -> int:
                 return build_variant(
                     job[0], edits[job[0]](job[1]), ptxas=job,
                     src=k6_old_source() if job[1] == K6_OLD_FORM else None)
-            return build_variant(job[0], edits[job[0]](job[1]))
+            return build_variant(job[0], edits[job[0]](job[1]),
+                                 ptxas=job if job[0] == "count_below_mma"
+                                 else None)
         except RuntimeError as e:  # a form the compiler refuses
             print(f"chip_tune: {job[0]} {job[1]}: {str(e)[-600:]}",
                   file=sys.stderr)
@@ -765,8 +894,9 @@ def main() -> int:
         ok &= tune_k3(torch, s, libs)
     if "k3run" in parts:
         ok &= tune_k3run(torch, s, libs)
-    if "mma" in parts:
-        ok &= tune_mma(torch, s, libs)
+    for t in ("mma", "bf16"):
+        if t in parts:
+            ok &= tune_mma(torch, s, libs, t == "bf16")
     if "k5" in parts:
         ok &= tune_k5(torch, s, libs)
     if "k6" in parts:
@@ -995,8 +1125,9 @@ def tune_k5(torch, s, libs) -> bool:
     return ok
 
 
-def tune_mma(torch, s, libs) -> bool:
-    """K1-mma's forms against each other (module docstring)."""
+def tune_mma(torch, s, libs, bf16: bool = False) -> bool:
+    """K1-mma's forms of one operand type against each other (module
+    docstring)."""
     import chip_smoke
     from cbird_tpu_torch import _build
     rng = np.random.default_rng(chip_smoke.SEED + 7)
@@ -1015,9 +1146,15 @@ def tune_mma(torch, s, libs) -> bool:
         "Q=1024 N=2^20 diagonal": (hay[:1024], hay[:1 << 20], vd[:1 << 20],
                                    True),
         "Q=16384 N=2^21": (nd, hay, vd, False)}
+    if bf16:
+        del shapes["Q=1024 N=2^20 diagonal"]
+    kind = "bf16" if bf16 else "e4m3"
+    source = BF16_SOURCE if bf16 else MMA_SOURCE
     stream = torch.cuda.current_stream().cuda_stream
     ok = True
-    forms = list(MMA_FORMS)  # less those the card refuses
+    # the type's forms, less those the compiler or the card refuses
+    forms = [m for m, (_, types) in MMA_FORMS.items()
+             if kind in types and ("count_below_mma", m) in libs]
     times = {v: {} for v in forms}
     for shape, (q, h, v, masked) in shapes.items():
         outs = {m: torch.empty(q.numel(), dtype=torch.int32, device="cuda")
@@ -1027,7 +1164,7 @@ def tune_mma(torch, s, libs) -> bool:
             lib = libs[("count_below_mma", m)]
             return lambda: _build.check(lib, lib.cbird_count_below_mma(
                 q.data_ptr(), q.numel(), h.data_ptr(), v.data_ptr(),
-                h.numel(), chip_smoke.T, 0, int(masked), 0, 0,
+                h.numel(), chip_smoke.T, int(bf16), int(masked), 0, 0,
                 outs[m].data_ptr(), stream), "count_below_mma")
         for m in list(forms):
             try:
@@ -1039,8 +1176,7 @@ def tune_mma(torch, s, libs) -> bool:
                 del times[m]
                 forms.remove(m)
                 continue
-            if m in MMA_VARIANTS and not torch.equal(outs[m],
-                                                      outs[MMA_SOURCE]):
+            if m in MMA_VARIANTS and not torch.equal(outs[m], outs[source]):
                 print(f"chip_tune: K1-mma {m} differs at {shape}",
                       file=sys.stderr)
                 ok = False
@@ -1049,9 +1185,11 @@ def tune_mma(torch, s, libs) -> bool:
                 times[m].setdefault(shape, []).append(s.event_ms(launch(m),
                                                                  20))
     for m in times:
-        print(json.dumps({"kernel": "K1-mma", "form": m,
-                          "checked": m in MMA_VARIANTS, "t": chip_smoke.T,
-                          "ms": times[m]}), flush=True)
+        print(json.dumps({"kernel": "K1-mma-bf16" if bf16 else "K1-mma",
+                          "form": m, "checked": m in MMA_VARIANTS,
+                          "t": chip_smoke.T, "ms": times[m],
+                          "ptxas": PTXAS.get(("count_below_mma", m))}),
+              flush=True)
     return ok
 
 

@@ -6,9 +6,9 @@ interpret mode), a numpy golden and the popcount K1 / K2; and the routes
 of the image gate and the self-search triangle through them.
 
 Counts are integers and must be equal exactly.  On the CPU the wrapper
-runs its plain PyTorch twin; the CUDA kernel itself, in both its wgmma
-(e4m3) and bf16 forms, is compared with that twin on the card (``-m
-cuda`` here, and chip_smoke.py).
+runs its plain PyTorch twin; the CUDA kernel itself, in both its operand
+types (e4m3 and bf16, one wgmma kernel template), is compared with that
+twin on the card (``-m cuda`` here, and chip_smoke.py).
 """
 
 import numpy as np
@@ -70,10 +70,12 @@ def interpret(monkeypatch):
     monkeypatch.setattr(mc, "_INTERPRET", True)
 
 
-@pytest.mark.parametrize("t", THRESHOLDS)
-def test_count_matches_mxu_and_golden(data, interpret, t):
+@pytest.mark.parametrize("t,bf16", [(t, False) for t in THRESHOLDS]
+                         + [(5, True)],
+                         ids=[str(t) for t in THRESHOLDS] + ["bf16-5"])
+def test_count_matches_mxu_and_golden(data, interpret, t, bf16):
     """The port on a ragged needle batch (251 of 256) against the Pallas
-    kernel on the whole tile and the numpy golden."""
+    kernel on the whole tile and the numpy golden; the bf16 route too."""
     hashes, valid, needles = data
     want = np.asarray(mc.mxu_count_below(
         jnp.asarray(split_u64(needles)), jnp.asarray(split_u64(hashes)),
@@ -82,7 +84,8 @@ def test_count_matches_mxu_and_golden(data, interpret, t):
     assert np.array_equal(want, _golden(hashes, valid, needles, t))
     q = Q - 5
     got = cm.count_below_mma(_t(needles[:q]), _t(hashes),
-                             torch.from_numpy(valid.copy()), t).numpy()
+                             torch.from_numpy(valid.copy()), t,
+                             bf16=bf16).numpy()
     assert got.dtype == np.int32
     assert np.array_equal(got, want[:q])
 
@@ -147,10 +150,12 @@ def c0popcount(*args, **kw):
     return cb.count_below(*args, **kw).numpy()
 
 
-@pytest.mark.parametrize("rb,c0,t", MASK_CASES)
-def test_masked_matches_triangle_and_golden(data, interpret, rb, c0, t):
+@pytest.mark.parametrize(
+    "rb,c0,t,bf16", [(*c, False) for c in MASK_CASES] + [(512, 256, 33, True)],
+    ids=[f"{rb}-{c0}-{t}" for rb, c0, t in MASK_CASES] + ["bf16-512-256-33"])
+def test_masked_matches_triangle_and_golden(data, interpret, rb, c0, t, bf16):
     """The masked form (K2-mma) on the CPU against the Pallas diagonal-tile
-    kernel, the numpy golden and the popcount K2."""
+    kernel, the numpy golden and the popcount K2; the bf16 route too."""
     hashes, valid, _ = data
     rows, cols = mc.BQ, mc.BC_MASKED
     nd = hashes[rb:rb + rows]
@@ -162,7 +167,7 @@ def test_masked_matches_triangle_and_golden(data, interpret, rb, c0, t):
     assert np.array_equal(want, _golden_masked(hs, vs, nd, t, rb, c0))
     args = (_t(nd), _t(hs), torch.from_numpy(vs.copy()), t)
     kw = dict(masked=True, row_base=rb, col_base=c0)
-    got = cm.count_below_mma(*args, **kw).numpy()
+    got = cm.count_below_mma(*args, bf16=bf16, **kw).numpy()
     assert np.array_equal(got, want)
     assert np.array_equal(got, c0popcount(*args, **kw))
     if c0 >= rb + rows:
@@ -254,17 +259,20 @@ def test_wrapper_has_no_fallback(monkeypatch):
 
 
 # the wgmma kernel's tile edges (csrc/count_below_mma.cu: units of 192
-# rows, three consumers of one m64 tile each, n-tiles of 256 columns,
-# steps of 1024 columns, a ring of 2 steps and one of 4 packed steps):
-# needle counts around an m64 tile and a unit's rows (one and two units),
-# column counts around a tile, a step, one past the ring's wrap and the
-# packed ring's, and the diagonal's offset (row_base - col_base) on and
-# beside the m64, n-tile and step edges and past the tile
+# rows, three consumers of one m64 tile each; e4m3: n-tiles of 256
+# columns, steps of 1024 columns, a ring of 2 steps and one of 4 packed
+# steps; bf16: n-tiles of 128, steps of 512, rings of 3 and 2): needle
+# counts around an m64 tile and a unit's rows (one and two units), column
+# counts around a tile, a step, one past each ring's wrap, and the
+# diagonal's offset (row_base - col_base) on and beside the m64, n-tile
+# and step edges and past the tile
 EDGE_Q = (1, 63, 65, 127, 129, 191, 193, 255, 257, 383, 385)
-EDGE_N = (1, 255, 257, 1023, 1025, 2049, 4097)
+EDGE_N = (1, 127, 129, 255, 257, 511, 513, 1023, 1025, 1537, 2049,
+          4097)
 EDGE_T = (0, 5, 33, 63, 64, 65)
 EDGE_D = (0, 1, -1, 63, -63, 64, -64, 127, -127, 128, -128, 255, -255, 256,
-          -256, 257, -257, 1023, -1023, 1024, -1024, 1025, -1025, 1500, -1500)
+          -256, 257, -257, 511, -511, 512, -512, 513, -513, 1023, -1023, 1024,
+          -1024, 1025, -1025, 1500, -1500)
 
 
 def _edge_store(n=6144, seed=13):
@@ -334,9 +342,16 @@ def test_masked_kernel_matches_plain_on_card(data, cuda, bf16):
     assert _counters() == tuple(want)
 
 
+def _launches(bf16: bool, masked: bool) -> int:
+    f = cm.count_below_mma
+    return (f.bf16_launches if bf16 else f.masked_launches if masked
+            else f.launches)
+
+
 @pytest.mark.cuda
-def test_kernel_tile_edges_on_card(cuda):
-    """The wgmma form at its tile edges, bit for bit against the plain twin
+@pytest.mark.parametrize("bf16", [False, True])
+def test_kernel_tile_edges_on_card(cuda, bf16):
+    """Each form at its tile edges, bit for bit against the plain twin
     and the popcount K1: every Q in EDGE_Q x N in EDGE_N x t in EDGE_T,
     from a column on a 16-byte boundary (its second slot all invalid) and
     from one off it; then a launch whose blocks walk more than one unit
@@ -344,14 +359,14 @@ def test_kernel_tile_edges_on_card(cuda):
     h, valid = _edge_store()
     hs, vs = _t(h).to(cuda), torch.from_numpy(valid).to(cuda)
     nd = _t(h[3000:3000 + max(EDGE_Q)] ^ np.uint64(0x11)).to(cuda)
-    before = cm.count_below_mma.launches
+    before = _launches(bf16, False)
     calls = 0
     for c0 in (768, 901):
         for q in EDGE_Q:
             for n in EDGE_N:
                 for t in EDGE_T:
                     args = (nd[:q], hs[c0:c0 + n], vs[c0:c0 + n], t)
-                    got = cm.count_below_mma(*args)
+                    got = cm.count_below_mma(*args, bf16=bf16)
                     torch.cuda.synchronize()
                     calls += 1
                     what = (c0, q, n, t)
@@ -360,34 +375,35 @@ def test_kernel_tile_edges_on_card(cuda):
                     assert torch.equal(got, cb.count_below(*args)), what
     many = _t(np.resize(h, 266 * 128) ^ np.uint64(3)).to(cuda)
     for t in (5, 65):
-        got = cm.count_below_mma(many, hs[:1000], vs[:1000], t)
+        got = cm.count_below_mma(many, hs[:1000], vs[:1000], t, bf16=bf16)
         calls += 1
         assert torch.equal(got, cb.count_below(many, hs[:1000], vs[:1000],
                                                t)), t
-    assert cm.count_below_mma.launches == before + calls
+    assert _launches(bf16, False) == before + calls
 
 
 @pytest.mark.cuda
-def test_masked_kernel_tile_edges_on_card(cuda):
-    """The masked wgmma form (K2-mma) with the diagonal at each offset of
-    EDGE_D, at Q in {65, 257} x N in {257, 1025}, t in EDGE_T, at 32-bit
-    and 64-bit ids, bit for bit against the plain twin and the popcount
-    K2."""
+@pytest.mark.parametrize("bf16", [False, True])
+def test_masked_kernel_tile_edges_on_card(cuda, bf16):
+    """Each masked form (K2-mma) with the diagonal at each offset of
+    EDGE_D, at Q in {65, 257} x N in {257, 513, 1025}, t in EDGE_T, at
+    32-bit and 64-bit ids, bit for bit against the plain twin and the
+    popcount K2."""
     h, valid = _edge_store()
     hs, vs = _t(h).to(cuda), torch.from_numpy(valid).to(cuda)
-    before = cm.count_below_mma.masked_launches
+    before = _launches(bf16, True)
     calls, hits = 0, 0
     s = 2500
     for d in EDGE_D:
         for q in (65, 257):
-            for n in (257, 1025):
+            for n in (257, 513, 1025):
                 for base in (0, 1 << 33):
                     for t in EDGE_T:
                         args = (hs[s + d:s + d + q], hs[s:s + n],
                                 vs[s:s + n], t)
                         kw = dict(masked=True, row_base=base + s + d,
                                   col_base=base + s)
-                        got = cm.count_below_mma(*args, **kw)
+                        got = cm.count_below_mma(*args, bf16=bf16, **kw)
                         torch.cuda.synchronize()
                         calls += 1
                         what = (d, q, n, base, t)
@@ -397,11 +413,12 @@ def test_masked_kernel_tile_edges_on_card(cuda):
                             what
                         hits += int(got.sum()) if t == 5 else 0
     assert hits > 0
-    assert cm.count_below_mma.masked_launches == before + calls
+    assert _launches(bf16, True) == before + calls
 
 
 @pytest.mark.cuda
-def test_whole_haystack_chunk_is_exact_on_card(cuda):
+@pytest.mark.parametrize("bf16", [False, True])
+def test_whole_haystack_chunk_is_exact_on_card(cuda, bf16):
     """So many needles (over 16 units an SM at two chunks) that each unit
     takes the whole haystack as its chunk, over 2^26 + 2^24 + 12345
     columns with 1% invalid: at t = 65 every valid column counts, so each
@@ -413,7 +430,7 @@ def test_whole_haystack_chunk_is_exact_on_card(cuda):
     hay = torch.randint(-2**62, 2**62, (n,), device=cuda, generator=gen)
     valid = torch.rand(n, device=cuda, generator=gen) > 0.01
     nd = torch.randint(-2**62, 2**62, (q,), device=cuda, generator=gen)
-    before = cm.count_below_mma.launches
-    got = cm.count_below_mma(nd, hay, valid, 65)
-    assert cm.count_below_mma.launches == before + 1
+    before = _launches(bf16, False)
+    got = cm.count_below_mma(nd, hay, valid, 65, bf16=bf16)
+    assert _launches(bf16, False) == before + 1
     assert torch.equal(got, torch.full_like(got, int(valid.sum())))
